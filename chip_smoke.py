@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port on one CUDA card, end to end.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) if it fails:
+
+1. build the CUDA kernels from ``determined_clone_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and print the build time
+   and ptxas' register/spill report;
+2. hold each kernel against its plain PyTorch version on the card, at the
+   GPT shapes (in bf16 and in fp32) and at small ones: within 1e-4 in
+   fp32, and in bf16 within the reference's 0.05 and, element by element,
+   within two bf16 ulps of the plain version's value (``BF16_REL``); time
+   kernel, plain version and the PyTorch library call that computes the
+   same function (timed here only; the port never calls it);
+3. run the uncached GPT forward at full width (``GPTConfig()``, random
+   weights from a seed) and check that the flash kernel ran once per
+   layer and that the logits agree with the plain-attention forward
+   within ``LOGITS_TOL``;
+4. serve 8 requests through the continuous-batching engine at full width
+   and check every token against a greedy loop over the port's
+   plain-attention forward (fp32: every token equal; bf16: at most
+   ``BF16_MAX_TIES`` near ties), and that every KV block comes back;
+5. profile one full-width forward and the engine's 8 requests
+   (``torch.profiler``; tables in ``smoke_out/chip_profile.txt``).
+
+The launch counts reported for each kernel are those of phase 3, the
+path that launches the kernel (the engine's paged forward attends with
+plain ``mha``, as in the JAX package). The last three lines are the
+kernels' JSON line, the card's name and power limit, and the result.
+Details go to ``smoke_out/chip_smoke.json``. Exits non-zero, printing
+no result, when CUDA is unavailable.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
+PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense bf16 tensor cores
+                  "torch.float32": 67e12}     # fp32 CUDA cores
+TOL = {"torch.float32": 1e-4, "torch.bfloat16": 0.05}
+# bf16 output: the kernel and the plain version both round an fp32 result
+# once, so they may differ by a rounding step of the value: per element
+# |out - ref| <= BF16_REL * |ref| + BF16_ABS (two ulps, 2**-6, plus a floor
+# for values near zero, far below the ~0.06 typical output at T=1024)
+BF16_REL, BF16_ABS = 2.0 ** -6, 1e-4
+# flash vs plain-attention forward at full width: the logits' spread is
+# ~0.5, bf16 rounding moves them by ~0.03 (PERF.md)
+LOGITS_TOL = 0.1
+# engine vs the greedy loop over the uncached forward, in bf16: a step may
+# pick another token only at a near tie, this close, and this often
+BF16_TIE_GAP, BF16_MAX_TIES = 0.1, 2
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO, "smoke_out")
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_build() -> dict:
+    from determined_clone_tpu_torch.ops import _build
+
+    t0 = time.monotonic()
+    records = _build.build_all()
+    wall = time.monotonic() - t0
+    for r in records:
+        log(f"[build] {r.name}: {r.seconds:.2f} s")
+        for line in r.ptxas.splitlines():
+            if "sm_90a" in line or "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] all kernels: {wall:.2f} s wall")
+    return {"seconds": wall, "kernels": {r.name: r.seconds for r in records}}
+
+
+def attention_bound(B, Tq, Tk, H, D, dtype, causal) -> tuple:
+    """(bound_ms, bound_by): q, k, v read once and o written once over HBM
+    bandwidth, against the score and value products this input needs
+    (only the causal pairs when causal) over the dtype's peak."""
+    import torch
+
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * B * Tq * H * D + 2 * B * Tk * H * D) * item
+    pairs = (sum(min(i + 1, Tk) for i in range(Tq)) if causal
+             else Tq * Tk)
+    ops = 4 * B * H * pairs * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[str(dtype)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels() -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from determined_clone_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (name, B, Tq, Tk, H, D, dtype, causal, block)
+    cases = [
+        ("gpt_width_bf16_causal", 4, 1024, 1024, 12, 64, torch.bfloat16,
+         True, 128),
+        ("gpt_width_fp32_causal", 4, 1024, 1024, 12, 64, torch.float32,
+         True, 128),
+        ("fp32_causal_t256", 2, 256, 256, 4, 64, torch.float32, True, 64),
+        ("fp32_noncausal_t256", 2, 256, 256, 4, 64, torch.float32, False,
+         64),
+        ("fp32_uneven_tq192_tk320", 2, 192, 320, 3, 32, torch.float32,
+         True, 64),
+        ("fp32_d16", 2, 128, 128, 2, 16, torch.float32, True, 32),
+        ("bf16_d128_noncausal", 1, 512, 512, 4, 128, torch.bfloat16, False,
+         128),
+    ]
+    results = []
+    for name, B, Tq, Tk, H, D, dtype, causal, blk in cases:
+        q = torch.randn((B, Tq, H, D), generator=gen, device="cuda",
+                        dtype=dtype)
+        # k and v as strided views of one fused tensor, as the GPT block
+        # hands them over from its qkv projection
+        kv = torch.randn((B, Tk, 2 * H * D), generator=gen, device="cuda",
+                         dtype=dtype)
+        k = kv[..., :H * D].reshape(B, Tk, H, D)
+        v = kv[..., H * D:].reshape(B, Tk, H, D)
+        out = flash_attention(q, k, v, causal=causal, block_q=blk,
+                              block_k=blk)
+        ref = flash_attention_reference(q, k, v, causal=causal, block_q=blk,
+                                        block_k=blk)
+        torch.cuda.synchronize()
+        if out.shape != q.shape or out.dtype != dtype:
+            raise AssertionError(f"{name}: output {out.shape} {out.dtype}")
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        tol = TOL[str(dtype)]
+        if not err <= tol:
+            raise AssertionError(f"{name}: max abs err {err} > {tol}")
+        # share of the per-element bound used, at the worst element
+        rel_used = None
+        if dtype == torch.bfloat16:
+            bound = BF16_REL * ref.float().abs() + BF16_ABS
+            rel_used = (diff / bound).max().item()
+            if not rel_used <= 1.0:
+                raise AssertionError(
+                    f"{name}: an element differs by more than two bf16 ulps "
+                    f"({rel_used:.3g} of the bound)")
+        kernel_ms = cuda_ms(lambda: flash_attention(
+            q, k, v, causal=causal, block_q=blk, block_k=blk))
+        plain_ms = cuda_ms(lambda: flash_attention_reference(
+            q, k, v, causal=causal, block_q=blk, block_k=blk), iters=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        bound_ms, bound_by = attention_bound(B, Tq, Tk, H, D, dtype, causal)
+        row = {"case": name, "shape": [B, Tq, Tk, H, D],
+               "dtype": str(dtype), "causal": causal, "max_abs_err": err,
+               "tol": tol, "bf16_bound_used": rel_used,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        results.append(row)
+        rel = "" if rel_used is None else f", {rel_used:.3g} of ulp bound"
+        log(f"[kernel] {name}: err {err:.3g} (tol {tol}{rel}) kernel "
+            f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{library_ms:.4f} ms bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+    return results
+
+
+def phase_forward(params, cfg) -> dict:
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+
+    B, T, reps = 4, 1024, 3
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device="cuda")
+    if gpt.resolved_attention_impl(cfg, tokens.device) != "flash":
+        raise AssertionError("auto attention did not resolve to flash")
+    with torch.no_grad():
+        gpt.apply(params, cfg, tokens)  # first call: cuBLAS, lazy modules
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(reps):
+            logits = gpt.apply(params, cfg, tokens)
+        torch.cuda.synchronize()
+        fwd_s = (time.monotonic() - t0) / reps
+        launches = flash_attention.launches
+        if launches != reps * cfg.n_layers:
+            raise AssertionError(f"flash launched {launches} times in {reps} "
+                                 f"forwards of {cfg.n_layers} layers")
+        ref = gpt.apply(params, dataclasses.replace(cfg, attention_impl="mha"),
+                        tokens)
+    if logits.shape != (B, T, cfg.vocab_size) or logits.dtype != torch.float32:
+        raise AssertionError(f"logits {tuple(logits.shape)} {logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits")
+    diff = (logits - ref).abs().max().item()
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"[forward] GPTConfig() B={B} T={T}: {fwd_s * 1e3:.2f} ms/forward, "
+        f"flash launches {launches} ({cfg.n_layers} per forward), logits "
+        f"max |flash - mha| {diff:.4g}, argmax agreement {agree:.5f}")
+    # bf16 activations through 12 layers: the two attentions round at
+    # different places (fp32 probabilities in the kernel, bf16 in mha).
+    # Random weights leave many near-tied logits, so the argmax agreement
+    # is reported, and the bound is on the logits themselves.
+    if not diff <= LOGITS_TOL:
+        raise AssertionError(f"flash forward logits differ from mha by "
+                             f"{diff} > {LOGITS_TOL}")
+    return {"batch": B, "seq": T, "forward_ms": fwd_s * 1e3,
+            "launches": launches, "forwards": reps,
+            "max_abs_diff_vs_mha": diff, "argmax_agreement_vs_mha": agree}
+
+
+def serve(params, cfg, prompts, new):
+    """All prompts through one engine at once; returns the results, the
+    wall time from first submit to last token, and the final stats."""
+    from determined_clone_tpu_torch.serving import BucketSpec, InferenceEngine
+
+    with InferenceEngine(params, cfg,
+                         buckets=BucketSpec.build(8, 256)) as eng:
+        eng.generate([1, 2, 3], 2)  # first calls: cuBLAS handles, allocator
+        t0 = time.monotonic()
+        handles = [eng.submit(p, new, request_id=str(i))
+                   for i, p in enumerate(prompts)]
+        results = [h.result(timeout=600) for h in handles]
+        wall = time.monotonic() - t0
+        eng.wait_idle()
+        stats = eng.stats()
+        pool = eng.cache.num_blocks
+    for r in results:
+        if r.finish_reason != "length" or len(r.tokens) != new:
+            raise AssertionError(f"request {r.request_id}: {r.finish_reason} "
+                                 f"with {len(r.tokens)} tokens")
+    if stats.completed != len(prompts) + 1 or stats.free_blocks != pool:
+        raise AssertionError(f"engine stats {stats} (pool {pool})")
+    return results, wall, stats
+
+
+def check_greedy(params, cfg, prompts, results, tie_tol=0.0,
+                 max_ties=0) -> dict:
+    """The reference's pin, step by step: at every generated position the
+    full uncached forward (plain attention) over the prompt and the
+    engine's tokens so far must pick the engine's token. Where every
+    step agrees this IS the greedy loop over ``apply``. With ``max_ties``
+    above 0, up to that many steps may pick another token at a near tie —
+    the engine's token within ``tie_tol`` of the best logit — since the
+    paged and uncached forwards run different matrix shapes, whose bf16
+    sums the card orders differently."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    mha_cfg = dataclasses.replace(cfg, attention_impl="mha")
+    exact = ties = 0
+    worst = 0.0
+    with torch.no_grad():
+        for p, r in zip(prompts, results):
+            toks = list(p)
+            for t in r.tokens:
+                logits = gpt.apply(params, mha_cfg,
+                                   torch.tensor([toks], device="cuda"))[0, -1]
+                best = int(logits.argmax())
+                if best == t:
+                    exact += 1
+                else:
+                    margin = float(logits[best] - logits[t])
+                    if not margin <= tie_tol:
+                        raise AssertionError(
+                            f"request {r.request_id} step {len(toks) - len(p)}"
+                            f": engine token {t}, greedy {best}, logit gap "
+                            f"{margin} > {tie_tol}")
+                    ties += 1
+                    worst = max(worst, margin)
+                    if ties > max_ties:
+                        raise AssertionError(
+                            f"{ties} steps differ from the greedy loop at "
+                            f"near ties, more than {max_ties}")
+                toks.append(t)
+    return {"exact": exact, "near_ties": ties, "worst_tie_gap": worst,
+            "tie_tol": tie_tol}
+
+
+def greedy_loop(params, cfg, prompt, n):
+    """Free-running greedy decode over the uncached forward."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    toks = list(prompt)
+    with torch.no_grad():
+        for _ in range(n):
+            logits = gpt.apply(params, cfg, torch.tensor([toks],
+                                                         device="cuda"))
+            toks.append(int(logits[0, -1].argmax()))
+    return toks[len(prompt):]
+
+
+def phase_engine(params, cfg) -> dict:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    lengths = [16, 40, 64, 90, 120, 150, 180, 200]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    new = 32
+    results, wall, stats = serve(params, cfg, prompts, new)
+    tokens = sum(len(r.tokens) for r in results)
+    lat = sorted(r.total_s for r in results)
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    log(f"[engine] 8 requests, prompts {lengths[0]}-{lengths[-1]}, {new} new "
+        f"tokens each: {tokens / wall:.1f} tokens/s, p50 {p50 * 1e3:.1f} ms, "
+        f"p99 {p99 * 1e3:.1f} ms, free blocks {stats.free_blocks} (all)")
+    pin = check_greedy(params, cfg, prompts, results, tie_tol=BF16_TIE_GAP,
+                       max_ties=BF16_MAX_TIES)
+    log(f"[engine] bf16 vs the mha greedy loop: {pin['exact']}/{tokens} "
+        f"steps exact, {pin['near_ties']} near ties (worst gap "
+        f"{pin['worst_tie_gap']:.4g})")
+    same = 0
+    for p, r in zip(prompts, results):
+        flash_tokens = greedy_loop(params, cfg, p, new)
+        same += sum(a == b for a, b in zip(r.tokens, flash_tokens))
+    log(f"[engine] agreement with the flash greedy loop: {same / tokens:.4f} "
+        f"({same}/{tokens} tokens)")
+
+    # the same pin in fp32, token for token
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    results32, _, _ = serve(params, cfg32, prompts, new)
+    pin32 = check_greedy(params, cfg32, prompts, results32)
+    log(f"[engine] fp32 vs the mha greedy loop: {pin32['exact']}/{tokens} "
+        f"steps equal")
+    return {"requests": len(prompts), "prompt_lengths": lengths,
+            "new_tokens": new, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+            "latencies_s": lat, "free_blocks": stats.free_blocks,
+            "pin_bf16": pin, "pin_fp32": pin32,
+            "flash_greedy_agreement": same / tokens}
+
+
+def profile_window(fn, label, out_lines) -> dict:
+    """Run ``fn`` under torch.profiler; the device time of its kernels,
+    summed (one stream, so no two overlap), and the top kernels. Only
+    kernel rows count: an operator's row repeats its kernels' time.
+    Appends the full table to ``out_lines``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total_us = sum(e.self_device_time_total for e in kernels)
+    out_lines += [f"== {label}: kernel time {total_us / 1e3:.3f} ms",
+                  averages.table(sort_by="self_device_time_total",
+                                 row_limit=30)]
+    top = [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+            "calls": e.count} for e in kernels[:8]]
+    return {"device_ms": total_us / 1e3, "top": top}
+
+
+def phase_profile(params, cfg, engine_wall_s) -> dict:
+    """Where the time goes: one full-width forward, and the engine serving
+    the 8 requests again. Device busy share = profiled kernel time over
+    the unprofiled wall time of the same work."""
+    import numpy as np
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    lines: list = []
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1024), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    with torch.no_grad():
+        fwd = profile_window(lambda: gpt.apply(params, cfg, tokens),
+                             "forward B=4 T=1024", lines)
+    rng = np.random.default_rng(0)
+    lengths = [16, 40, 64, 90, 120, 150, 180, 200]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    eng = profile_window(lambda: serve(params, cfg, prompts, 32),
+                         "engine, 8 requests", lines)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_profile.txt"), "w") as f:
+        f.write("\n".join(lines))
+    eng["busy_share"] = eng["device_ms"] / 1e3 / engine_wall_s
+    for label, r in (("forward", fwd), ("engine", eng)):
+        top = ", ".join(f"{t['name'][:40]} {t['ms']:.2f} ms x{t['calls']}"
+                        for t in r["top"][:5])
+        log(f"[profile] {label}: device {r['device_ms']:.2f} ms; {top}")
+    log(f"[profile] engine device busy share {eng['busy_share']:.3f} of "
+        f"{engine_wall_s * 1e3:.1f} ms unprofiled wall")
+    return {"forward": fwd, "engine": eng}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from determined_clone_tpu_torch.models import gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    report = {"build": phase_build(), "kernels": phase_kernels()}
+
+    cfg = gpt.GPTConfig()
+    t0 = time.monotonic()
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    log(f"[init] GPTConfig(): {gpt.param_count(params)} params in "
+        f"{time.monotonic() - t0:.2f} s")
+    report["forward"] = phase_forward(params, cfg)
+    report["engine"] = phase_engine(params, cfg)
+    report["profile"] = phase_profile(params, cfg, report["engine"]["wall_s"])
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    main_case = report["kernels"][0]
+    kernels = [{
+        "name": "flash_attn_fwd", "route": "cuda",
+        "source": "determined_clone_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "determined_clone_tpu/ops/flash_attention.py:38",
+        "launches": report["forward"]["launches"],
+        "max_abs_err": main_case["max_abs_err"],
+        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"]}]
+    report["card"] = smi
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,143 @@
+"""Flash attention forward — the port of
+``determined_clone_tpu/ops/flash_attention.py``.
+
+The TPU kernel (``_fwd_kernel`` under ``pl.pallas_call``) becomes a CUDA
+kernel written for Hopper, ``csrc/flash_attn_fwd.cu``; its source note
+says how the TPU grid translates and what bounds it on the card.
+
+:func:`flash_attention` keeps the JAX wrapper's contract: q, k, v in the
+``[B, T, H, D]`` layout, block sizes clamped to the sequence lengths,
+``ValueError`` when a length does not divide. Tensors on the CPU take the
+plain version, :func:`flash_attention_reference`, which walks the same
+tile loop as the TPU kernel (online softmax in fp32, causal tiles above
+the diagonal skipped); any other tensor launches the kernel or raises —
+there is no fallback from the card to the plain version.
+
+This slice is inference only: a CUDA input that requires grad raises.
+The backward (the JAX package recomputes through its blockwise scan,
+``_vjp_bwd``) comes with the training slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              block_q: int = 128,
+                              block_k: int = 128) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, tile by tile: per query block,
+    an online softmax over the key blocks with m/l/acc in fp32, the
+    fully-masked-row guard on ``alpha``, and ``acc / max(l, 1e-30)`` in
+    the input dtype. Blocks must divide the lengths (the caller clamps)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / (D ** 0.5)
+    qf = q.permute(0, 2, 1, 3).float() * scale     # [B, H, Tq, D]
+    kf = k.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    out = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Tq, block_q):
+        qb = qf[:, :, q0:q0 + block_q]
+        m = torch.full((B, H, block_q), NEG_INF, device=q.device)
+        l = torch.zeros((B, H, block_q), device=q.device)
+        acc = torch.zeros((B, H, block_q, D), device=q.device)
+        q_pos = q0 + torch.arange(block_q, device=q.device)[:, None]
+        for k0 in range(0, Tk, block_k):
+            if causal and q0 + block_q - 1 < k0:
+                continue  # tile strictly above the diagonal
+            s = qb @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)
+            if causal:
+                keep = q_pos >= k0 + torch.arange(block_k,
+                                                  device=q.device)[None, :]
+                s = s.masked_fill(~keep, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # fully-masked-so-far rows: exp(NEG_INF - NEG_INF) must not be 1
+            alpha = torch.exp(torch.where(m > NEG_INF / 2, m - m_new,
+                                          torch.full_like(m, NEG_INF)))
+            p = torch.exp(s - m_new[..., None])
+            if causal:
+                p = p.masked_fill(~keep, 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p @ vf[:, :, k0:k0 + block_k]
+            m = m_new
+        out[:, :, q0:q0 + block_q] = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Fused attention. q,k,v: [B, T, H, D]; matches ``mha`` numerically
+    (fp32 softmax). Block sizes clamp to the sequence lengths, which must
+    then divide evenly. ``flash_attention.launches`` counts kernel
+    launches (not calls of the plain version)."""
+    block_q = min(block_q, q.shape[1])
+    block_k = min(block_k, k.shape[1])
+    if q.shape[1] % block_q != 0:
+        raise ValueError(
+            f"q length {q.shape[1]} not divisible by block_q {block_q}")
+    if k.shape[1] % block_k != 0:
+        raise ValueError(
+            f"k length {k.shape[1]} not divisible by block_k {block_k}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v on different devices: "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         block_q=block_q, block_k=block_k)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError("flash backward: training slice")
+    return _launch(q, k, v, causal)
+
+
+flash_attention.launches = 0
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """Check what the kernel takes, allocate the output, launch on the
+    current stream and count the launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, T, H, D]")
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if k.shape != (B, Tk, H, D) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
+                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("the head dimension of q, k, v must be contiguous")
+    from determined_clone_tpu_torch.ops import _build
+
+    lib = _build.library("flash_attn_fwd")
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(
+        t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attn_fwd(
+            _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), B, H, Tq, Tk, strides,
+            1.0 / (D ** 0.5), int(causal), stream)
+    if err != 0:
+        msg = lib.flash_attn_error_string(err).decode()
+        raise RuntimeError(f"flash_attn_fwd launch failed ({err}): {msg}")
+    flash_attention.launches += 1
+    return o
