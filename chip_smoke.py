@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # everything below
+    python3 chip_smoke.py --quick   # phases 1-2 only, each case once, untimed
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -13,11 +14,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    fp32, and in bf16 within the reference's 0.05 and, element by element,
    within two bf16 ulps of the plain version's value (``BF16_REL``); time
    kernel, plain version and the PyTorch library call that computes the
-   same function (timed here only; the port never calls it);
+   same function (timed here only; the port never calls it) on the device,
+   by replaying a CUDA graph of 20 calls (``device_ms``), time the
+   kernel's calls back to back from the host as well (``call_ms``: the
+   wrapper's Python included), and report each case's share of its bound
+   (``bound_ms / kernel_ms``);
 3. run the uncached GPT forward at full width (``GPTConfig()``, random
-   weights from a seed) and check that the flash kernel ran once per
-   layer and that the logits agree with the plain-attention forward
-   within ``LOGITS_TOL``;
+   weights from a seed), at T=1024 and at a ragged T=1000 that the kernel
+   takes unpadded, and check that the flash kernel ran once per layer and
+   that the logits agree with the plain-attention forward within
+   ``LOGITS_TOL``;
 4. serve 8 requests through the continuous-batching engine at full width
    and check every token against a greedy loop over the port's
    plain-attention forward (fp32: every token equal; bf16: at most
@@ -42,8 +48,10 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
-PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense bf16 tensor cores
-                  "torch.float32": 67e12}     # fp32 CUDA cores
+# dense tensor-core peaks: the kernel runs bf16 on them, and fp32 as three
+# TF32 products, so TF32's rate bounds fp32 inputs
+PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,
+                  "torch.float32": 495e12}
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 0.05}
 # bf16 output: the kernel and the plain version both round an fp32 result
 # once, so they may differ by a rounding step of the value: per element
@@ -62,22 +70,6 @@ OUT_DIR = os.path.join(REPO, "smoke_out")
 
 def log(*args) -> None:
     print(*args, flush=True)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def phase_build() -> dict:
@@ -111,7 +103,7 @@ def attention_bound(B, Tq, Tk, H, D, dtype, causal) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels() -> list:
+def phase_kernels(timed: bool = True) -> list:
     import torch
     import torch.nn.functional as F
 
@@ -119,8 +111,15 @@ def phase_kernels() -> list:
         flash_attention,
         flash_attention_reference,
     )
+    from determined_clone_tpu_torch.timing import (
+        call_ms,
+        device_ms,
+        warm_clocks,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if timed:
+        warm_clocks()
     # (name, B, Tq, Tk, H, D, dtype, causal, block)
     cases = [
         ("gpt_width_bf16_causal", 4, 1024, 1024, 12, 64, torch.bfloat16,
@@ -134,6 +133,16 @@ def phase_kernels() -> list:
          True, 64),
         ("fp32_d16", 2, 128, 128, 2, 16, torch.float32, True, 32),
         ("bf16_d128_noncausal", 1, 512, 512, 4, 128, torch.bfloat16, False,
+         128),
+        ("bf16_causal_t1000_ragged", 4, 1000, 1000, 12, 64, torch.bfloat16,
+         True, 200),
+        ("bf16_causal_d16", 4, 1024, 1024, 12, 16, torch.bfloat16, True,
+         128),
+        ("bf16_causal_d32", 4, 1024, 1024, 12, 32, torch.bfloat16, True,
+         128),
+        ("gpt_width_bf16_noncausal", 4, 1024, 1024, 12, 64, torch.bfloat16,
+         False, 128),
+        ("bf16_causal_t2048", 2, 2048, 2048, 12, 64, torch.bfloat16, True,
          128),
     ]
     results = []
@@ -167,43 +176,55 @@ def phase_kernels() -> list:
                 raise AssertionError(
                     f"{name}: an element differs by more than two bf16 ulps "
                     f"({rel_used:.3g} of the bound)")
-        kernel_ms = cuda_ms(lambda: flash_attention(
-            q, k, v, causal=causal, block_q=blk, block_k=blk))
-        plain_ms = cuda_ms(lambda: flash_attention_reference(
-            q, k, v, causal=causal, block_q=blk, block_k=blk), iters=5)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
-        bound_ms, bound_by = attention_bound(B, Tq, Tk, H, D, dtype, causal)
+        rel = "" if rel_used is None else f", {rel_used:.3g} of ulp bound"
         row = {"case": name, "shape": [B, Tq, Tk, H, D],
                "dtype": str(dtype), "causal": causal, "max_abs_err": err,
-               "tol": tol, "bf16_bound_used": rel_used,
-               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "tol": tol, "bf16_bound_used": rel_used}
         results.append(row)
-        rel = "" if rel_used is None else f", {rel_used:.3g} of ulp bound"
+        if not timed:
+            log(f"[kernel] {name}: err {err:.3g} (tol {tol}{rel})")
+            continue
+        def kernel():
+            return flash_attention(q, k, v, causal=causal, block_q=blk,
+                                   block_k=blk)
+
+        kernel_ms = device_ms(kernel)
+        kernel_call_ms = call_ms(kernel)
+        plain_ms = device_ms(lambda: flash_attention_reference(
+            q, k, v, causal=causal, block_q=blk, block_k=blk), iters=2,
+            replays=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        bound_ms, bound_by = attention_bound(B, Tq, Tk, H, D, dtype, causal)
+        row.update({"kernel_ms": kernel_ms, "call_ms": kernel_call_ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_share": bound_ms / kernel_ms})
         log(f"[kernel] {name}: err {err:.3g} (tol {tol}{rel}) kernel "
-            f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms library "
-            f"{library_ms:.4f} ms bound {bound_ms * 1e3:.2f} us "
-            f"({bound_by})")
+            f"{kernel_ms:.4f} ms (call {kernel_call_ms:.4f} ms) plain "
+            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by}), "
+            f"{bound_ms / kernel_ms:.3f} of bound")
     return results
 
 
-def phase_forward(params, cfg) -> dict:
+def drive_forward(params, cfg, B, T, reps, seed) -> dict:
+    """``reps`` uncached forwards at [B, T] through the flash kernel, with
+    its launch count set to 0 just before and read just after; then the
+    plain-attention forward on the same tokens, and the logits held
+    against it."""
     import torch
 
     from determined_clone_tpu_torch.models import gpt
     from determined_clone_tpu_torch.ops.flash_attention import flash_attention
 
-    B, T, reps = 4, 1024, 3
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
                            device="cuda")
     if gpt.resolved_attention_impl(cfg, tokens.device) != "flash":
         raise AssertionError("auto attention did not resolve to flash")
     with torch.no_grad():
-        gpt.apply(params, cfg, tokens)  # first call: cuBLAS, lazy modules
         flash_attention.launches = 0
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -236,6 +257,20 @@ def phase_forward(params, cfg) -> dict:
     return {"batch": B, "seq": T, "forward_ms": fwd_s * 1e3,
             "launches": launches, "forwards": reps,
             "max_abs_diff_vs_mha": diff, "argmax_agreement_vs_mha": agree}
+
+
+def phase_forward(params, cfg) -> dict:
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    with torch.no_grad():  # first call: cuBLAS, lazy modules
+        gpt.apply(params, cfg, torch.zeros((4, 1024), dtype=torch.long,
+                                           device="cuda"))
+    main = drive_forward(params, cfg, B=4, T=1024, reps=3, seed=1)
+    # T not a multiple of the kernel's 64-row tile, handed over unpadded
+    main["ragged"] = drive_forward(params, cfg, B=2, T=1000, reps=1, seed=2)
+    return main
 
 
 def serve(params, cfg, prompts, new):
@@ -422,7 +457,14 @@ def phase_profile(params, cfg, engine_wall_s) -> dict:
     return {"forward": fwd, "engine": eng}
 
 
-def main() -> int:
+def kernel_entry(case: dict) -> dict:
+    return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
+            "call_ms": case["call_ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"]}
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -430,11 +472,16 @@ def main() -> int:
         return 1
     from determined_clone_tpu_torch.models import gpt
 
+    quick = "--quick" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    report = {"build": phase_build(), "kernels": phase_kernels()}
+    report = {"build": phase_build(),
+              "kernels": phase_kernels(timed=not quick)}
+    if quick:
+        log("[quick] every kernel case agrees with its plain version")
+        return 0
 
     cfg = gpt.GPTConfig()
     t0 = time.monotonic()
@@ -449,16 +496,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    main_case = report["kernels"][0]
+    # the main path's case (bf16 at the GPT width) and, beside it, the
+    # same shape in fp32
+    cases = {c["case"]: c for c in report["kernels"]}
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "determined_clone_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "determined_clone_tpu/ops/flash_attention.py:38",
         "launches": report["forward"]["launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]
+        **kernel_entry(cases["gpt_width_bf16_causal"]),
+        "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -472,4 +519,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -20,7 +20,10 @@ import torch
 
 from determined_clone_tpu_torch.device import DeviceLike, resolve_device
 from determined_clone_tpu_torch.ops.attention import mha, rotary_embedding
-from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+from determined_clone_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_kernel,
+)
 from determined_clone_tpu_torch.ops.layers import (
     dense,
     dense_init,
@@ -167,11 +170,17 @@ def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
     """One pre-LN transformer block. x: [B, T, D] in compute dtype."""
     T = x.shape[1]
     q, k, v = _qkv(cfg, bp, x, positions)
-    if resolved_attention_impl(cfg, x.device) == "flash":
+    if resolved_attention_impl(cfg, x.device) != "flash":
+        attn = mha(q, k, v, causal=True)
+    elif x.device.type != "cpu":
+        # the kernel masks ragged edges itself: any T, no padding
+        attn = flash_attention_kernel(q, k, v, causal=True)
+    else:
         blk = min(cfg.attention_block_size, 128)
-        # the kernel's contract tiles T into blk-sized blocks; pad an
-        # indivisible T and slice back. Safe because attention is causal:
-        # real queries only ever see real keys, padded rows are dropped.
+        # the plain version keeps the JAX contract, which tiles T into
+        # blk-sized blocks; pad an indivisible T and slice back. Safe
+        # because attention is causal: real queries only ever see real
+        # keys, padded rows are dropped.
         pad = -T % blk
         if pad:
             q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
@@ -180,8 +189,6 @@ def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
                                block_k=blk)
         if pad:
             attn = attn[:, :T]
-    else:
-        attn = mha(q, k, v, causal=True)
     return _finish_block(cfg, bp, x, attn)
 
 

@@ -13,6 +13,11 @@ tile loop as the TPU kernel (online softmax in fp32, causal tiles above
 the diagonal skipped); any other tensor launches the kernel or raises —
 there is no fallback from the card to the plain version.
 
+The kernel tiles and masks ragged edges itself, so the block contract is
+the JAX wrapper's, not the kernel's: :func:`flash_attention_kernel` is the
+kernel route at any lengths, which the GPT block takes on the card in
+place of padding T to a block multiple.
+
 This slice is inference only: a CUDA input that requires grad raises.
 The backward (the JAX package recomputes through its blockwise scan,
 ``_vjp_bwd``) comes with the training slice.
@@ -87,28 +92,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[1] % block_k != 0:
         raise ValueError(
             f"k length {k.shape[1]} not divisible by block_k {block_k}")
-    if not q.device == k.device == v.device:
-        raise ValueError(f"q, k, v on different devices: "
-                         f"{q.device}, {k.device}, {v.device}")
+    _same_device(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          block_q=block_q, block_k=block_k)
+    return flash_attention_kernel(q, k, v, causal=causal)
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *,
+                           causal: bool = True) -> torch.Tensor:
+    """The kernel at any lengths Tq, Tk: no block contract, no padding.
+    Never takes the plain version; raises for tensors off the card."""
+    _same_device(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError("flash backward: training slice")
     return _launch(q, k, v, causal)
 
 
-flash_attention.launches = 0
+def _same_device(q, k, v) -> None:
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v on different devices: "
+                         f"{q.device}, {k.device}, {v.device}")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream and count the launch."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
-                         f"{q.device}")
+def check_kernel_args(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> tuple:
+    """What the kernel takes, checked without a card: [B, T, H, D] with
+    matching B, H, D and Tk; one dtype of float32 or bfloat16; D in
+    ``_HEAD_DIMS``; a contiguous head dimension; base pointers and the B,
+    T and H strides (in bytes) multiples of 16, for the 16-byte
+    asynchronous copies. The stride of a dimension of size 1 is never
+    used, so it is passed as 0 and not checked. Raises ``ValueError``;
+    returns ``(B, H, Tq, Tk, D, strides)``, ``strides`` the 9 element
+    strides (batch, time, head) of q, k, v."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, D]")
     B, Tq, H, D = q.shape
@@ -122,22 +143,58 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{v.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("the head dimension of q, k, v must be contiguous")
+    strides = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        st, sh, item = t.stride(), t.shape, t.element_size()
+        if st[3] != 1:
+            raise ValueError("the head dimension of q, k, v must be "
+                             "contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data pointer is not 16-byte aligned")
+        for i, dim in enumerate("BTH"):
+            s = st[i] if sh[i] > 1 else 0
+            if s * item % 16:
+                raise ValueError(f"{name}'s {dim} stride ({st[i]} elements) "
+                                 f"is not a multiple of 16 bytes")
+            strides.append(s)
+    return B, H, Tq, Tk, D, tuple(strides)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """Launch the kernel built from ``csrc/flash_attn_fwd.cu`` on the
+    current stream and count the launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
+                         f"{q.device}")
     from determined_clone_tpu_torch.ops import _build
 
-    lib = _build.library("flash_attn_fwd")
+    o = run_kernel(_build.library("flash_attn_fwd"), q, k, v, causal)
+    if o.numel():
+        flash_attention.launches += 1
+    return o
+
+
+def run_kernel(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Check what the kernel takes, allocate the output and launch the
+    kernel of ``lib`` (a library with the ``flash_attn_fwd`` C interface)
+    on the current stream; nothing to launch for an empty output."""
+    B, H, Tq, Tk, D, strides = check_kernel_args(q, k, v)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(
-        t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)))
+    if o.numel() == 0:
+        return o
+    ost = o.stride()
+    c_strides = (ctypes.c_longlong * 12)(
+        *strides, ost[0] if B > 1 else 0, ost[1] if Tq > 1 else 0,
+        ost[2] if H > 1 else 0)
+    args = (_DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), B, H, Tq, Tk, c_strides,
+            1.0 / D ** 0.5, int(causal))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attn_fwd(
-            _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), B, H, Tq, Tk, strides,
-            1.0 / (D ** 0.5), int(causal), stream)
+        err = lib.flash_attn_fwd(*args,
+                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.flash_attn_error_string(err).decode()
         raise RuntimeError(f"flash_attn_fwd launch failed ({err}): {msg}")
-    flash_attention.launches += 1
     return o
