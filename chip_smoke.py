@@ -29,14 +29,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    plain-attention forward (fp32: every token equal; bf16: at most
    ``BF16_MAX_TIES`` near ties), and that every KV block comes back;
 5. profile one full-width forward and the engine's 8 requests
-   (``torch.profiler``; tables in ``smoke_out/chip_profile.txt``).
+   (``torch.profiler``; tables in ``smoke_out/chip_profile.txt``);
+6. training: (a) the attention gradient — the flash kernel's forward
+   with the blockwise recompute backward (``FlashAttentionFunction``)
+   against autograd through ``mha`` on the same inputs in fp32, at
+   B=4, T=1024, H=12, D=64 causal in fp32 and bf16 and at a ragged
+   T=1000 in bf16, output, dq, dk and dv each within ``GRAD_TOL``; (b)
+   32 AdamW steps (``bench.py``'s optimizer) of ``GPTConfig()`` at B=8,
+   T=1024 on one seeded batch: every loss finite, the first near
+   ln(vocab) and the last below it by ``MIN_LOSS_DROP``, the flash kernel
+   launched ``2 * n_layers`` times per step (remat recomputes each
+   block's forward), ms/step, tokens/s, MFU, peak memory, the device's
+   busy share over one profiled step; and one step through flash and
+   one through ``mha`` from the same weights agreeing within
+   ``TRAIN_TOL``.
 
-The launch counts reported for each kernel are those of phase 3, the
-path that launches the kernel (the engine's paged forward attends with
-plain ``mha``, as in the JAX package). The last three lines are the
-kernels' JSON line, the card's name and power limit, and the result.
-Details go to ``smoke_out/chip_smoke.json``. Exits non-zero, printing
-no result, when CUDA is unavailable.
+fp32 matrix products run in full fp32 throughout (TF32 off), the
+training phase included. The launch count in each kernel's entry is
+that of phase 3, the uncached forward (the engine's paged forward
+attends with plain ``mha``, as in the JAX package); ``train_launches``
+is that of phase 6's 32 steps. The last three lines are the kernels'
+JSON line, the card's name and power limit, and the result. Details go
+to ``smoke_out/chip_smoke.json``. Exits non-zero, printing no result,
+when CUDA is unavailable.
 """
 from __future__ import annotations
 
@@ -64,6 +79,20 @@ LOGITS_TOL = 0.1
 # engine vs the greedy loop over the uncached forward, in bf16: a step may
 # pick another token only at a near tie, this close, and this often
 BF16_TIE_GAP, BF16_MAX_TIES = 0.1, 2
+# attention gradient against autograd through mha on the fp32 values of
+# the same inputs: fp32 runs the same fp32 math summed in another order
+# (~1e-6 of the largest value expected), so within 1e-4 of it; in bf16
+# the forward and the fp32 recompute round once to bf16 at the end, so
+# per element within BF16_REL·|ref| plus 1e-4 of the largest value (the
+# floor for elements near zero)
+GRAD_TOL = {"torch.float32": (0.0, 1e-4), "torch.bfloat16": (BF16_REL, 1e-4)}
+# one train step through flash and through mha from the same weights, in
+# bf16: the two attentions round at different places (fp32 probabilities
+# in the kernel, bf16 in mha), which moves the mean loss by ~1e-4 and
+# grad_norm by a few 1e-4 relative (PERF.md); the largest update is
+# Adam's first-step bound on both sides
+TRAIN_TOL = {"loss": 2e-3, "grad_norm_rel": 5e-3, "max_update_rel": 0.01}
+MIN_LOSS_DROP = 1.0  # 32 steps on one batch: it memorises
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "smoke_out")
 
@@ -457,6 +486,324 @@ def phase_profile(params, cfg, engine_wall_s) -> dict:
     return {"forward": fwd, "engine": eng}
 
 
+def attention_grad_case(name, B, T, H, D, dtype, gen) -> dict:
+    """The flash Function's output and gradients against autograd through
+    ``mha`` on the fp32 values of the same inputs (and, for scale, bf16
+    ``mha``'s own error); fwd+bwd times of the Function, of ``mha`` and
+    of the library's fused attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from determined_clone_tpu_torch.ops.attention import mha
+    from determined_clone_tpu_torch.ops.flash_attention import (
+        flash_attention_kernel,
+    )
+    from determined_clone_tpu_torch.timing import call_ms
+
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda", dtype=dtype)
+    kv = torch.randn((B, T, 2 * H * D), generator=gen, device="cuda",
+                     dtype=dtype)
+    g = torch.randn((B, T, H, D), generator=gen, device="cuda", dtype=dtype)
+
+    def run(attn, q, kv, g):
+        q, kv = q.detach().requires_grad_(), kv.detach().requires_grad_()
+        # k and v as strided views of one fused tensor, as in the GPT block
+        k = kv[..., :H * D].reshape(B, T, H, D)
+        v = kv[..., H * D:].reshape(B, T, H, D)
+        out = attn(q, k, v)
+        dq, dkv = torch.autograd.grad(out, (q, kv), g)
+        return [out.detach(), dq, dkv[..., :H * D].reshape(B, T, H, D),
+                dkv[..., H * D:].reshape(B, T, H, D)]
+
+    def flash(q, k, v):
+        return flash_attention_kernel(q, k, v, causal=True)
+
+    def plain(q, k, v):
+        return mha(q, k, v, causal=True)
+
+    got = run(flash, q, kv, g)
+    ref = run(plain, q.float(), kv.float(), g.float())
+    same_dtype = run(plain, q, kv, g)
+    torch.cuda.synchronize()
+    rel, floor = GRAD_TOL[str(dtype)]
+    row = {"case": name, "shape": [B, T, H, D], "dtype": str(dtype)}
+    for label, a, b, c in zip(("out", "dq", "dk", "dv"), got, ref,
+                              same_dtype):
+        if a.shape != b.shape or a.dtype != dtype:
+            raise AssertionError(f"{name} {label}: {a.shape} {a.dtype}")
+        diff = (a.float() - b).abs()
+        scale = b.abs().max().item()
+        used = (diff / (rel * b.abs() + floor * scale)).max().item()
+        row[label] = {"max_abs_err": diff.max().item(), "max_abs_ref": scale,
+                      "bound_used": used,
+                      "mha_same_dtype_err": (c.float() - b).abs().max().item()}
+        if not used <= 1.0:
+            raise AssertionError(
+                f"{name} {label}: max err {diff.max().item():.4g} "
+                f"({used:.3g} of the bound; max |ref| {scale:.4g})")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, kv[..., :H * D].reshape(B, T, H, D),
+                            kv[..., H * D:].reshape(B, T, H, D)))
+    gt = g.transpose(1, 2)
+    row["ms"] = {
+        "flash_fwd_bwd": call_ms(lambda: run(flash, q, kv, g), iters=5,
+                                 warmup=2),
+        "mha_fwd_bwd": call_ms(lambda: run(plain, q, kv, g), iters=5,
+                               warmup=2),
+        "library_fwd_bwd": call_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            (qt, kt, vt), gt), iters=5, warmup=2)}
+    errs = ", ".join(f"{k} {row[k]['max_abs_err']:.3g} "
+                     f"({row[k]['bound_used']:.3g} of bound; mha in "
+                     f"{str(dtype)[6:]} {row[k]['mha_same_dtype_err']:.3g})"
+                     for k in ("out", "dq", "dk", "dv"))
+    ms = row["ms"]
+    log(f"[grad] {name}: {errs}; fwd+bwd flash {ms['flash_fwd_bwd']:.3f} "
+        f"ms, mha {ms['mha_fwd_bwd']:.3f} ms, library "
+        f"{ms['library_fwd_bwd']:.3f} ms")
+    return row
+
+
+def phase_attention_grad() -> list:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return [attention_grad_case(*case, gen) for case in (
+        ("gpt_width_fp32", 4, 1024, 12, 64, torch.float32),
+        ("gpt_width_bf16", 4, 1024, 12, 64, torch.bfloat16),
+        ("bf16_t1000_ragged", 4, 1000, 12, 64, torch.bfloat16))]
+
+
+def train_setup(cfg, params):
+    """``bench.py``'s training step: AdamW(3e-4, 0.9, 0.95, wd 0.1), the
+    loss on ``b[:, :-1]`` against ``b[:, 1:]``."""
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.training.optim import adamw
+    from determined_clone_tpu_torch.training.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    tx = adamw(3e-4, b1=0.9, b2=0.95, weight_decay=0.1)
+
+    def loss(p, b, seed):
+        return gpt.loss_fn(p, cfg, b[:, :-1], b[:, 1:]), {}
+
+    return create_train_state(params, tx, seed=1), make_train_step(loss, tx)
+
+
+def flash_vs_mha_step(cfg, tokens) -> dict:
+    """One step through flash and one through mha from the same weights
+    and batch: loss, grad_norm, and the largest parameter change, which
+    Adam's first step bounds by lr·(1 + wd·|p|)."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.training.optim import leaves, tree_map
+
+    p0 = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    out = {}
+    for impl in ("flash", "mha"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        state, step = train_setup(c, tree_map(torch.clone, p0))
+        state, m = step(state, tokens)
+        delta = max((p.detach() - q).abs().max().item()
+                    for p, q in zip(leaves(state.params), leaves(p0)))
+        out[impl] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "max_update": delta, "params": state.params}
+    f, m = out["flash"], out["mha"]
+    bound = 3e-4 * (1 + 0.1 * max(p.abs().max().item() for p in leaves(p0)))
+    apart = max((a.detach() - b.detach()).abs().max().item()
+                for a, b in zip(leaves(f.pop("params")),
+                                leaves(m.pop("params"))))
+    res = {"flash": f, "mha": m, "update_bound": bound,
+           "max_param_apart_lr": apart / 3e-4,
+           "loss_diff": abs(f["loss"] - m["loss"]),
+           "grad_norm_rel": abs(f["grad_norm"] / m["grad_norm"] - 1),
+           "max_update_rel": abs(f["max_update"] / m["max_update"] - 1)}
+    log(f"[train] flash vs mha, one step from the same weights: loss "
+        f"{f['loss']:.6f} vs {m['loss']:.6f}, grad_norm {f['grad_norm']:.6g}"
+        f" vs {m['grad_norm']:.6g}, max update {f['max_update']:.4g} vs "
+        f"{m['max_update']:.4g} (bound {bound:.4g}), params apart by at "
+        f"most {res['max_param_apart_lr']:.3g} lr")
+    checks = {"loss": res["loss_diff"], "grad_norm_rel": res["grad_norm_rel"],
+              "max_update_rel": res["max_update_rel"]}
+    for key, val in checks.items():
+        if not val <= TRAIN_TOL[key]:
+            raise AssertionError(f"flash vs mha step: {key} {val} > "
+                                 f"{TRAIN_TOL[key]}")
+    for impl in ("flash", "mha"):
+        if not out[impl]["max_update"] <= bound * (1 + 1e-3):
+            raise AssertionError(f"{impl} step moved a parameter by "
+                                 f"{out[impl]['max_update']} > {bound}")
+    return res
+
+
+def step_breakdown(cfg, state, B, T, lines) -> dict:
+    """Device ms of the step's parts, each profiled alone at the step's
+    shapes: one layer's attention forward and backward through the flash
+    Function (the step runs it ``n_layers`` times, plus one more forward
+    launch per layer in the recompute); the head — final layernorm, the
+    fp32 tied logits and the cross-entropy, forward and backward; and the
+    AdamW update with ``grad_norm`` over the full parameter set."""
+    import torch
+
+    from determined_clone_tpu_torch.ops.flash_attention import (
+        flash_attention_kernel,
+    )
+    from determined_clone_tpu_torch.ops.layers import (
+        layernorm,
+        softmax_cross_entropy,
+    )
+    from determined_clone_tpu_torch.training.optim import (
+        adamw,
+        global_norm,
+        leaves,
+        tree_map,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    H, D, V = cfg.n_heads, cfg.head_dim, cfg.vocab_size
+    bf16 = cfg.compute_dtype
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda", dtype=bf16,
+                    requires_grad=True)
+    kv = torch.randn((B, T, 2 * H * D), generator=gen, device="cuda",
+                     dtype=bf16, requires_grad=True)
+    g = torch.randn((B, T, H, D), generator=gen, device="cuda", dtype=bf16)
+
+    def attention():
+        k = kv[..., :H * D].reshape(B, T, H, D)
+        v = kv[..., H * D:].reshape(B, T, H, D)
+        torch.autograd.grad(flash_attention_kernel(q, k, v), (q, kv), g)
+
+    params = state.params
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda",
+                    dtype=bf16, requires_grad=True)
+    targets = torch.randint(0, V, (B, T), generator=gen, device="cuda")
+
+    def head():
+        h = layernorm(params["final_norm"], x)
+        logits = h.float() @ params["embed"]["table"].float().T
+        loss = softmax_cross_entropy(logits, targets).mean()
+        torch.autograd.grad(loss, (x, params["embed"]["table"]))
+
+    copies = tree_map(lambda t: t.detach().clone(), params)
+    grads = tree_map(torch.randn_like, copies)
+    tx = adamw(3e-4, b1=0.9, b2=0.95, weight_decay=0.1)
+    opt = [tx.init(copies)]
+
+    def update():
+        global_norm(leaves(grads))
+        opt[0] = tx.update(grads, opt[0], copies)
+
+    parts = {}
+    for name, fn in (("attention_layer", attention), ("head", head),
+                     ("optimizer", update)):
+        fn()  # first call: allocator, cuBLAS
+        parts[name] = profile_window(fn, f"part: {name}", lines)["device_ms"]
+    return parts
+
+
+def phase_train() -> dict:
+    """32 steps of ``GPTConfig()`` at B=8, T=1024 on one seeded batch:
+    2 warm steps, then 3 windows of 10, each ending in a host read of
+    the loss; the median window gives ms/step. Then one profiled step,
+    and the flash-vs-mha step."""
+    import math
+    import statistics
+
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.telemetry import flops
+
+    cfg = gpt.GPTConfig()
+    B, T = 8, 1024
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    if gpt.resolved_attention_impl(cfg, tokens.device) != "flash":
+        raise AssertionError("auto attention did not resolve to flash")
+    state, step = train_setup(cfg, params)
+    losses, windows = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    for _ in range(2):
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+    float(m["loss"])
+    for _ in range(3):
+        t0 = time.monotonic()
+        for _ in range(10):
+            state, m = step(state, tokens)
+            losses.append(m["loss"])
+        float(m["loss"])
+        windows.append((time.monotonic() - t0) / 10)
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).tolist()
+    n = len(losses)
+    per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    if launches != n * per_step:
+        raise AssertionError(f"flash launched {launches} times in {n} steps,"
+                             f" expected {per_step} per step")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    if not abs(losses[0] - ln_v) <= 0.5:
+        raise AssertionError(f"first loss {losses[0]}, ln(vocab) {ln_v}")
+    if not losses[-1] <= losses[0] - MIN_LOSS_DROP:
+        raise AssertionError(f"loss did not fall: {losses}")
+    step_s = statistics.median(windows)
+    model_flops = flops.gpt_train_step_flops(cfg, B, T)
+    mfu = flops.mfu(model_flops.flops_per_sec(step_s))
+    log(f"[train] GPTConfig() B={B} T={T}, AdamW: {step_s * 1e3:.2f} ms/step"
+        f" (windows {', '.join(f'{w * 1e3:.2f}' for w in windows)}), "
+        f"{B * T / step_s:.0f} tokens/s, {B / step_s:.2f} samples/s, MFU "
+        f"{mfu:.4f} of 989 TFLOP/s ({model_flops.total / 1e12:.3f} "
+        f"TFLOP/step), peak memory {peak / 2**30:.2f} GiB, flash launches "
+        f"{launches} ({launches // n} per step)")
+    log(f"[train] loss: first {losses[0]:.4f} (ln vocab {ln_v:.4f}), last "
+        f"{losses[-1]:.4f} after {n} steps")
+
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], tokens)
+
+    lines = []
+    prof = profile_window(one_step, "train step B=8 T=1024", lines)
+    prof["busy_share"] = prof["device_ms"] / 1e3 / step_s
+    parts = step_breakdown(cfg, box[0], B, T, lines)
+    attn = parts["attention_layer"] * cfg.n_layers
+    parts["rest"] = (prof["device_ms"] - attn - parts["head"]
+                     - parts["optimizer"])
+    prof["parts_ms"] = parts
+    with open(os.path.join(OUT_DIR, "chip_profile.txt"), "a") as f:
+        f.write("\n" + "\n".join(lines))
+    top = ", ".join(f"{t['name'][:40]} {t['ms']:.2f} ms x{t['calls']}"
+                    for t in prof["top"][:5])
+    log(f"[profile] train step: device {prof['device_ms']:.2f} ms, busy "
+        f"share {prof['busy_share']:.3f} of {step_s * 1e3:.2f} ms; {top}")
+    log(f"[profile] train step parts, device ms: attention fwd+bwd "
+        f"{parts['attention_layer']:.2f} a layer x {cfg.n_layers} = "
+        f"{attn:.2f}; head (norm, fp32 logits, cross-entropy) "
+        f"{parts['head']:.2f}; AdamW + grad_norm {parts['optimizer']:.2f}; "
+        f"the rest of the blocks {parts['rest']:.2f}")
+    del state, box, params
+    return {"batch": B, "seq": T, "steps": n, "step_ms": step_s * 1e3,
+            "window_ms": [w * 1e3 for w in windows],
+            "tokens_per_s": B * T / step_s, "samples_per_s": B / step_s,
+            "model_tflop_per_step": model_flops.total / 1e12, "mfu": mfu,
+            "peak_memory_bytes": peak, "launches": launches,
+            "launches_per_step": launches // n, "losses": losses,
+            "profile": prof, "flash_vs_mha": flash_vs_mha_step(cfg, tokens)}
+
+
 def kernel_entry(case: dict) -> dict:
     return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "call_ms": case["call_ms"], "plain_ms": case["plain_ms"],
@@ -491,6 +838,9 @@ def main(argv) -> int:
     report["forward"] = phase_forward(params, cfg)
     report["engine"] = phase_engine(params, cfg)
     report["profile"] = phase_profile(params, cfg, report["engine"]["wall_s"])
+    del params
+    report["attention_grad"] = phase_attention_grad()
+    report["train"] = phase_train()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -504,6 +854,8 @@ def main(argv) -> int:
         "source": "determined_clone_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "determined_clone_tpu/ops/flash_attention.py:38",
         "launches": report["forward"]["launches"],
+        "train_launches": report["train"]["launches"],
+        "train_launches_per_step": report["train"]["launches_per_step"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

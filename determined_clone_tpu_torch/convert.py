@@ -1,4 +1,5 @@
-"""Parameters from the JAX package into the port, one leaf for one leaf.
+"""Parameters (and Adam's optimizer state) from the JAX package into the
+port, one leaf for one leaf.
 
 The JAX package's parameters are nested dicts of arrays; as numpy
 (``jax.device_get`` on the JAX side — the port never imports JAX) they
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from determined_clone_tpu_torch.device import DeviceLike, resolve_device
+from determined_clone_tpu_torch.training.optim import AdamState
 
 
 def _to_tensor(arr: Any, dev: torch.device, dtype) -> torch.Tensor:
@@ -57,3 +59,15 @@ def params_from_numpy(tree: Mapping[str, Any], device: DeviceLike = "cuda",
     if any("." in k for k in tree):
         tree = _nest(tree)
     return conv(tree)
+
+
+def adam_state_from_numpy(state: Any, device: DeviceLike = "cuda"
+                          ) -> AdamState:
+    """optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; as numpy
+    trees, from ``jax.device_get``) → the port's :class:`AdamState` on
+    ``device``, so a JAX run's optimizer resumes in the port. For
+    ``optax.adamw``/``adam`` it is the first entry of the chain's state
+    tuple; the decay and learning-rate entries hold nothing."""
+    return AdamState(count=int(np.asarray(state.count)),
+                     mu=params_from_numpy(state.mu, device),
+                     nu=params_from_numpy(state.nu, device))

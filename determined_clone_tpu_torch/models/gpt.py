@@ -1,25 +1,36 @@
-"""GPT inference — the port of ``determined_clone_tpu/models/gpt.py``.
+"""GPT — the port of ``determined_clone_tpu/models/gpt.py``.
 
 Parameters are a plain dict with the JAX package's stacked-block layout
 (``blocks/<name>/<leaf>`` carry a leading ``[L]`` layer dimension), so
 ``convert.params_from_numpy`` maps the JAX tree one leaf to one leaf. A
 Python loop over the layers takes the place of ``lax.scan``.
 
-This slice covers the uncached forward (``apply``, through the CUDA
-flash-attention kernel on the card) and the paged prefill/decode forward
-the serving engine runs (``forward_paged``). Training (loss, dropout,
-remat), MoE, pipelining, ``forward_paged_logits`` and the identity-layer
-helpers come in later slices.
+Covered: the uncached forward (``apply``, through the CUDA
+flash-attention kernel on the card), training (``loss_fn`` with dropout
+and remat per block; the flash backward recomputes through the blockwise
+attention), and the paged prefill/decode forward the serving engine runs
+(``forward_paged``). MoE, pipelining, ``forward_paged_logits`` and the
+identity-layer helpers come in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from determined_clone_tpu_torch.device import DeviceLike, resolve_device
-from determined_clone_tpu_torch.ops.attention import mha, rotary_embedding
+from determined_clone_tpu_torch.ops.attention import (
+    causal_blockwise_attention,
+    mha,
+    rotary_embedding,
+)
 from determined_clone_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_kernel,
@@ -27,11 +38,14 @@ from determined_clone_tpu_torch.ops.flash_attention import (
 from determined_clone_tpu_torch.ops.layers import (
     dense,
     dense_init,
+    dropout,
     embedding,
     embedding_init,
+    fold_seed,
     gelu,
     layernorm,
     layernorm_init,
+    softmax_cross_entropy,
     trunc_normal,
 )
 
@@ -51,9 +65,9 @@ class GPTConfig:
     param_dtype: Any = torch.float32
     remat: bool = True
     # "auto" (flash on CUDA tensors, mha on the CPU), "mha" (plain
-    # PyTorch), "flash" (the CUDA kernel; its plain version on the CPU).
-    # "blockwise" and the legacy blockwise_attention flag belong to the
-    # training slice.
+    # PyTorch), "blockwise" (the streaming form), "flash" (the CUDA
+    # kernel; its plain version on the CPU). blockwise_attention=True is
+    # the legacy spelling of "blockwise".
     attention_impl: str = "auto"
     blockwise_attention: bool = False
     attention_block_size: int = 512
@@ -86,9 +100,7 @@ def resolved_attention_impl(cfg: GPTConfig, device: DeviceLike) -> str:
     impl = "blockwise" if cfg.blockwise_attention else cfg.attention_impl
     if impl == "auto":
         return "flash" if torch.device(device).type == "cuda" else "mha"
-    if impl == "blockwise":
-        raise NotImplementedError("blockwise attention: training slice")
-    if impl not in ("mha", "flash"):
+    if impl not in ("mha", "blockwise", "flash"):
         raise ValueError(f"unknown attention_impl {impl!r}; "
                          f"expected auto|mha|blockwise|flash")
     return impl
@@ -153,30 +165,50 @@ def _qkv(cfg: GPTConfig, bp: Params, x: torch.Tensor,
 
 
 def _finish_block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
-                  attn: torch.Tensor) -> torch.Tensor:
-    """Output projection, residual, and the MLP half of the block."""
+                  attn: torch.Tensor,
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Output projection, residual, and the MLP half of the block; with
+    ``gen``, dropout on both branches before their residual adds."""
     B, T, D = x.shape
-    x = x + dense(bp["attn_out"], attn.reshape(B, T, D),
-                  compute_dtype=cfg.compute_dtype)
+    attn = dense(bp["attn_out"], attn.reshape(B, T, D),
+                 compute_dtype=cfg.compute_dtype)
+    x = x + dropout(attn, cfg.dropout, gen)
     h = layernorm(bp["ln2"], x)
     h = dense(bp["mlp_up"], h, compute_dtype=cfg.compute_dtype)
     h = gelu(h)
     h = dense(bp["mlp_down"], h, compute_dtype=cfg.compute_dtype)
-    return x + h
+    return x + dropout(h, cfg.dropout, gen)
 
 
 def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    """One pre-LN transformer block. x: [B, T, D] in compute dtype."""
+           positions: torch.Tensor,
+           dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """One pre-LN transformer block. x: [B, T, D] in compute dtype.
+    Dropout is on when ``dropout_seed`` (this layer's) is given."""
+    # Remat trap: torch.utils.checkpoint restores the global RNG state for
+    # the recompute, never an explicit generator's. A generator carried
+    # from block to block would draw other masks in the recompute and give
+    # wrong gradients without an error. So the block seeds a fresh
+    # generator from its layer's seed, and the recompute draws the same
+    # masks.
+    gen = None
+    if dropout_seed is not None:
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(dropout_seed)
     T = x.shape[1]
     q, k, v = _qkv(cfg, bp, x, positions)
-    if resolved_attention_impl(cfg, x.device) != "flash":
+    impl = resolved_attention_impl(cfg, x.device)
+    blk = min(cfg.attention_block_size, 128)
+    if impl == "mha":
         attn = mha(q, k, v, causal=True)
+    elif impl == "blockwise":
+        attn = causal_blockwise_attention(
+            q, k, v, block_size=cfg.attention_block_size)
     elif x.device.type != "cpu":
-        # the kernel masks ragged edges itself: any T, no padding
-        attn = flash_attention_kernel(q, k, v, causal=True)
+        # the kernel masks ragged edges itself: any T, no padding (its
+        # backward pads K/V for the recompute)
+        attn = flash_attention_kernel(q, k, v, causal=True, block_k=blk)
     else:
-        blk = min(cfg.attention_block_size, 128)
         # the plain version keeps the JAX contract, which tiles T into
         # blk-sized blocks; pad an indivisible T and slice back. Safe
         # because attention is causal: real queries only ever see real
@@ -189,7 +221,7 @@ def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
                                block_k=blk)
         if pad:
             attn = attn[:, :T]
-    return _finish_block(cfg, bp, x, attn)
+    return _finish_block(cfg, bp, x, attn, gen)
 
 
 def _logits(params: Params, cfg: GPTConfig, x: torch.Tensor) -> torch.Tensor:
@@ -198,17 +230,76 @@ def _logits(params: Params, cfg: GPTConfig, x: torch.Tensor) -> torch.Tensor:
     return dense(params["lm_head"], x, compute_dtype=torch.float32)
 
 
-def apply(params: Params, cfg: GPTConfig,
-          tokens: torch.Tensor) -> torch.Tensor:
-    """Uncached forward → logits [B, T, V] (fp32). tokens: int [B, T] on
-    the parameters' device."""
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+    products without batch dimensions (the dense layers' ``mm``) are
+    saved; everything else, batched attention products included, is
+    recomputed in the backward. The flash Function is no aten op, so its
+    kernel launches again in the recompute — as in the JAX program, where
+    ``attn_out``'s weight gradient needs the attention output."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_remat_context = functools.partial(create_selective_checkpoint_contexts,
+                                   _remat_policy)
+
+
+def _forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
+             training: bool = False, dropout_seed: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward → (logits [B, T, V] fp32, aux scalar). tokens: int [B, T]
+    on the parameters' device. ``aux`` is the MoE load-balancing loss,
+    0 for this dense GPT.
+
+    Dropout is on only when ``training``, ``dropout_seed`` is given and
+    ``cfg.dropout > 0``; the per-layer seeds are derived before the loop,
+    as the JAX package splits per-layer keys outside its scan. With
+    ``cfg.remat`` and autograd recording, each block is checkpointed under
+    :func:`_remat_policy`."""
     T = tokens.shape[1]
     positions = torch.arange(T, device=tokens.device)
     x = embedding(params["embed"], tokens, compute_dtype=cfg.compute_dtype)
-    for i in range(cfg.n_layers):
-        x = _block(cfg, _layer(params, i), x, positions)
+    seeds = [None] * cfg.n_layers
+    if training and dropout_seed is not None and cfg.dropout > 0.0:
+        seeds = [fold_seed(dropout_seed, i) for i in range(cfg.n_layers)]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, seed in enumerate(seeds):
+        if remat:
+            x = checkpoint(_block, cfg, _layer(params, i), x, positions,
+                           seed, use_reentrant=False,
+                           context_fn=_remat_context)
+        else:
+            x = _block(cfg, _layer(params, i), x, positions, seed)
     x = layernorm(params["final_norm"], x)
-    return _logits(params, cfg, x).float()
+    logits = _logits(params, cfg, x).float()
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
+          training: bool = False,
+          dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Forward pass → logits [B, T, V] (fp32); see :func:`_forward`."""
+    logits, _ = _forward(params, cfg, tokens, training=training,
+                         dropout_seed=dropout_seed)
+    return logits
+
+
+def loss_fn(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
+            targets: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+            training: bool = False,
+            dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (fp32). targets/mask: [B, T]."""
+    logits, _ = _forward(params, cfg, tokens, training=training,
+                         dropout_seed=dropout_seed)
+    per_tok = softmax_cross_entropy(logits, targets)
+    if mask is None:
+        return per_tok.mean()
+    maskf = mask.float()
+    return (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
 
 
 def _block_paged(cfg: GPTConfig, bp: Params, x: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Flash attention forward — the port of
+"""Flash attention — the port of
 ``determined_clone_tpu/ops/flash_attention.py``.
 
 The TPU kernel (``_fwd_kernel`` under ``pl.pallas_call``) becomes a CUDA
@@ -18,15 +18,22 @@ the JAX wrapper's, not the kernel's: :func:`flash_attention_kernel` is the
 kernel route at any lengths, which the GPT block takes on the card in
 place of padding T to a block multiple.
 
-This slice is inference only: a CUDA input that requires grad raises.
-The backward (the JAX package recomputes through its blockwise scan,
-``_vjp_bwd``) comes with the training slice.
+Both routes go through :class:`FlashAttentionFunction`, the port of the
+JAX ``custom_vjp``: the forward is the kernel (or, on the CPU, the plain
+version) and saves only q, k, v; the backward recomputes attention with
+``causal_blockwise_attention`` and differentiates that, as ``_vjp_bwd``
+does. The TPU side has no backward kernel, so neither has the port: the
+backward is plain PyTorch on either device.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+from determined_clone_tpu_torch.ops.attention import causal_blockwise_attention
 
 NEG_INF = -1e30
 
@@ -93,25 +100,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"k length {k.shape[1]} not divisible by block_k {block_k}")
     _same_device(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal,
-                                         block_q=block_q, block_k=block_k)
-    return flash_attention_kernel(q, k, v, causal=causal)
+    return FlashAttentionFunction.apply(q, k, v, causal, block_q, block_k)
 
 
 flash_attention.launches = 0
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, *,
-                           causal: bool = True) -> torch.Tensor:
+                           v: torch.Tensor, *, causal: bool = True,
+                           block_k: int = 128) -> torch.Tensor:
     """The kernel at any lengths Tq, Tk: no block contract, no padding.
-    Never takes the plain version; raises for tensors off the card."""
+    Never takes the plain version; raises for tensors off the card.
+    ``block_k`` is the key block of the backward's recompute."""
     _same_device(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError("flash backward: training slice")
-    return _launch(q, k, v, causal)
+    return FlashAttentionFunction.apply(q, k, v, causal, None, block_k)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with the JAX package's VJP (``_vjp_fwd`` and
+    ``_vjp_bwd``). ``block_q`` None is the kernel route at any lengths;
+    otherwise CPU tensors take the plain version at the given blocks."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_q: Optional[int],
+                block_k: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.block_k = causal, block_k
+        if block_q is not None and q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, causal=causal,
+                                             block_q=block_q,
+                                             block_k=block_k)
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        Tq, Tk = q.shape[1], k.shape[1]
+        blk = min(ctx.block_k, Tk)
+        # the recompute's blocks must divide Tk, and the kernel route
+        # takes any T: pad K/V with zero rows to a block multiple. Safe
+        # only when causal with Tq <= Tk — the padded keys come after
+        # every real query, so none attends to them (JAX pads the GPT
+        # block's q, k, v on the same argument). Otherwise one block of
+        # all the keys.
+        pad = -Tk % blk
+        if pad and not (ctx.causal and Tq <= Tk):
+            blk, pad = Tk, 0
+        with torch.enable_grad():
+            # k and v may be strided views of the fused qkv projection:
+            # the gradients come back contiguous, in their shapes
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            kp, vp = k, v
+            if pad:
+                kp, vp = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+            out = causal_blockwise_attention(q, kp, vp, block_size=blk,
+                                             causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
 
 
 def _same_device(q, k, v) -> None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -101,6 +102,19 @@ def layernorm(params: Params, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def rmsnorm_init(dim: int, dtype=torch.float32, device: Any = None
+                 ) -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------
@@ -108,3 +122,48 @@ def layernorm(params: Params, x: torch.Tensor,
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU, tanh approximation (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Dropout, loss, metrics
+# ---------------------------------------------------------------------------
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data`` — the port's
+    ``jax.random.fold_in``/``split``: distinct inputs give independent
+    seeds, and the same inputs always the same one."""
+    state = np.random.SeedSequence([seed, *data]).generate_state(1, np.uint64)
+    return int(state[0]) >> 1
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``; ``x`` as it is when ``generator``
+    is None (not training) or ``rate`` is 0. The mask is drawn from
+    ``generator``, which must live on ``x``'s device — an explicit
+    generator, never the global one, so a recompute that seeds a fresh
+    generator alike draws the same mask (``models/gpt.py``)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-example loss; logits [..., C], integer labels [...]. Computed
+    in fp32 whatever the logits' dtype."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels[..., None].long()).squeeze(-1)
+    loss = logz - label_logit
+    if label_smoothing > 0.0:
+        smooth = logz - logits.mean(dim=-1)
+        loss = (1 - label_smoothing) * loss + label_smoothing * smooth
+    return loss
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(dim=-1) == labels).float().mean()

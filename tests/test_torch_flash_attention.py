@@ -12,6 +12,7 @@ and in bf16 two ulps per element (2**-6 * |ref| + 1e-4).
 import dataclasses
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,7 +141,10 @@ def test_kernel_path_raises_off_cuda():
 
 
 def test_device_input_requiring_grad_raises():
-    with pytest.raises(NotImplementedError, match="training slice"):
+    """Training takes the same route: a device input that requires grad
+    launches the kernel through the autograd Function, and off the card
+    the launcher raises rather than run the plain version."""
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         fa.flash_attention(*_meta(requires_grad=True))
 
 
@@ -214,6 +218,103 @@ def test_kernel_route_any_length_never_plain(monkeypatch):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fa.flash_attention_kernel(*(torch.zeros((1, 37, 2, 16))
                                     for _ in range(3)))
+
+
+# --- the backward: FlashAttentionFunction ----------------------------------
+
+def _jax_vjp(fn, inputs, g):
+    out, pullback = jax.vjp(fn, *(jnp.asarray(a) for a in inputs))
+    return [np.asarray(x) for x in (out, *pullback(jnp.asarray(g)))]
+
+
+def _port_vjp(fn, inputs, g):
+    """Autograd through ``fn`` on tensors made from ``inputs``; returns
+    the output and the gradients of the inputs, as numpy."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    return [x.detach().numpy() for x in (out, *grads)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_grads_match_jax_flash(causal):
+    """The CPU route (plain forward, blockwise recompute backward)
+    against ``jax.vjp`` through the JAX flash attention."""
+    q, k, v = _qkv(T=64)
+    g = np.random.default_rng(1).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=causal, block_q=32, block_k=32)
+    js = _jax_vjp(lambda *a: jax_flash(*a, **kw), (q, k, v), g)
+    ts = _port_vjp(lambda *a: fa.flash_attention(*a, **kw), (q, k, v), g)
+    for j, t in zip(js, ts):
+        np.testing.assert_allclose(j, t, atol=1e-4, rtol=0)
+
+
+def _mha_launcher(monkeypatch):
+    """The launcher replaced by plain attention on CPU tensors, so the
+    kernel route's forward runs here and its backward can be checked."""
+    calls = []
+
+    def launch(q, k, v, causal):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return mha(q, k, v, causal=causal)
+
+    monkeypatch.setattr(fa, "_launch", launch)
+    return calls
+
+
+def test_kernel_route_ragged_t_grads_match_jax(monkeypatch):
+    """T=37 reaches the kernel unpadded; the backward pads K/V to the
+    16-key block. q, k, v are strided views of one fused projection, as
+    the GPT block hands them over, and the gradient reaches the fused
+    tensor. JAX pads q, k, v to 48 and slices back, as its GPT block
+    does."""
+    calls = _mha_launcher(monkeypatch)
+    B, T, H, D = 1, 37, 2, 16
+    rng = np.random.default_rng(2)
+    qkv = rng.standard_normal((B, T, 3 * H * D)).astype(np.float32)
+    g = rng.standard_normal((B, T, H, D)).astype(np.float32)
+
+    def split(x):
+        return [x[..., i * H * D:(i + 1) * H * D].reshape(B, T, H, D)
+                for i in range(3)]
+
+    def jfn(x):
+        pad = ((0, 0), (0, 11), (0, 0), (0, 0))
+        q, k, v = (jnp.pad(t, pad) for t in split(x))
+        return jax_flash(q, k, v, causal=True, block_q=16,
+                         block_k=16)[:, :T]
+
+    js = _jax_vjp(jfn, (qkv,), g)
+    ts = _port_vjp(lambda x: fa.flash_attention_kernel(
+        *split(x), causal=True, block_k=16), (qkv,), g)
+    assert calls == [((B, T, H, D), (B, T, H, D))]
+    assert ts[1].shape == qkv.shape
+    for j, t in zip(js, ts):
+        np.testing.assert_allclose(j, t, atol=1e-4, rtol=0)
+
+
+def test_kernel_route_noncausal_uneven_grads_match_mha(monkeypatch):
+    """Non-causal, Tq=37 against Tk=45: zero keys would be attended, so
+    the backward recomputes over one block of all the keys instead."""
+    _mha_launcher(monkeypatch)
+    q, k, v = _qkv(T=37, Tk=45)
+    g = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+    js = _jax_vjp(lambda *a: jax_mha(*a, causal=False), (q, k, v), g)
+    ts = _port_vjp(lambda *a: fa.flash_attention_kernel(
+        *a, causal=False, block_k=16), (q, k, v), g)
+    for j, t in zip(js, ts):
+        np.testing.assert_allclose(j, t, atol=1e-4, rtol=0)
+
+
+def test_backward_returns_input_dtype_and_launches_nothing(monkeypatch):
+    calls = _mha_launcher(monkeypatch)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+               for a in _qkv(T=40))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention_kernel(q, k, v, block_k=16)
+    grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    assert [t.dtype for t in grads] == [torch.bfloat16] * 3
+    assert len(calls) == 1 and fa.flash_attention.launches == before
 
 
 # --- launch-argument checks (pure: no card needed) -------------------------

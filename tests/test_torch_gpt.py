@@ -125,9 +125,9 @@ def test_resolved_attention_impl():
     with pytest.raises(ValueError):
         tgpt.resolved_attention_impl(
             dataclasses.replace(tcfg, attention_impl="ring"), "cpu")
-    with pytest.raises(NotImplementedError):
-        tgpt.resolved_attention_impl(
-            dataclasses.replace(tcfg, blockwise_attention=True), "cpu")
+    for cfg in (dataclasses.replace(tcfg, blockwise_attention=True),
+                dataclasses.replace(tcfg, attention_impl="blockwise")):
+        assert tgpt.resolved_attention_impl(cfg, "cuda") == "blockwise"
     with pytest.raises(NotImplementedError):
         tgpt.GPTConfig(moe_experts=4)
 

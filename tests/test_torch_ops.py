@@ -9,6 +9,7 @@ round intermediates at different places).
 import ast
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,6 +152,119 @@ def test_initializers_shapes_and_bounds():
     assert tlayers.embedding_init(gen, 10, 6)["table"].shape == (10, 6)
     ln = tlayers.layernorm_init(6)
     assert float(ln["scale"].sum()) == 6 and float(ln["bias"].sum()) == 0
+
+
+def _vjp_pair(jfn, tfn, inputs, g, dtype):
+    """Output and input gradients of ``jfn`` (via ``jax.vjp``) and of
+    ``tfn`` (via autograd) on the same numpy inputs and cotangent."""
+    jin = [jnp.asarray(a, getattr(jnp, dtype)) for a in inputs]
+    jout, pullback = jax.vjp(jfn, *jin)
+    jgrads = pullback(jnp.asarray(g, getattr(jnp, dtype)))
+    tin = [torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_()
+           for a in inputs]
+    tout = tfn(*tin)
+    tgrads = torch.autograd.grad(tout, tin,
+                                 torch.from_numpy(g).to(tout.dtype))
+    return (jout, *jgrads), (tout.detach(), *tgrads)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_causal_blockwise_attention_and_vjp(dtype, atol, causal):
+    """Output and dq, dk, dv against the JAX scan: 4 key blocks of 8."""
+    rng = np.random.default_rng(7)
+    q, k, v, g = (rng.standard_normal((2, 32, 3, 16)).astype(np.float32)
+                  for _ in range(4))
+    js, ts = _vjp_pair(
+        lambda *a: jattn.causal_blockwise_attention(*a, block_size=8,
+                                                    causal=causal),
+        lambda *a: tattn.causal_blockwise_attention(*a, block_size=8,
+                                                    causal=causal),
+        (q, k, v), g, dtype)
+    assert ts[0].dtype == getattr(torch, dtype)
+    for j, t in zip(js, ts):
+        assert t.dtype == getattr(torch, dtype)
+        _close(j, t, atol * 2)  # gradients reach |g| ~ 2
+
+
+def test_blockwise_matches_mha_and_rejects_ragged_blocks():
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 24, 2, 8))
+                                .astype(np.float32)) for _ in range(3))
+    np.testing.assert_allclose(
+        tattn.causal_blockwise_attention(q, k, v, block_size=8).numpy(),
+        tattn.mha(q, k, v).numpy(), atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="evenly divide"):
+        tattn.causal_blockwise_attention(q, k, v, block_size=7)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_cross_entropy(smoothing, dtype):
+    """Always fp32 inside: bf16 logits are widened exactly, so both
+    dtypes hold to the fp32 bound."""
+    rng = np.random.default_rng(9)
+    logits = (4 * rng.standard_normal((3, 5, 40))).astype(np.float32)
+    labels = rng.integers(0, 40, (3, 5))
+    jl, tl = _pair(logits, dtype)
+    j = jlayers.softmax_cross_entropy(jl, jnp.asarray(labels), smoothing)
+    t = tlayers.softmax_cross_entropy(tl, torch.from_numpy(labels),
+                                      smoothing)
+    assert t.dtype == torch.float32 and t.shape == (3, 5)
+    _close(j, t, 1e-5 * 4)  # losses reach ~10
+
+
+def test_accuracy():
+    rng = np.random.default_rng(10)
+    logits = rng.standard_normal((4, 7, 11)).astype(np.float32)
+    labels = rng.integers(0, 11, (4, 7))
+    labels[0] = logits[0].argmax(-1)  # some hits for certain
+    j = jlayers.accuracy(jnp.asarray(logits), jnp.asarray(labels))
+    t = tlayers.accuracy(torch.from_numpy(logits), torch.from_numpy(labels))
+    assert float(j) == float(t) >= 7 / 28
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_rmsnorm(dtype, atol):
+    rng = np.random.default_rng(11)
+    x = (1.0 + 2.0 * rng.standard_normal((3, 7, 32))).astype(np.float32)
+    scale = rng.standard_normal(32).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    j = jlayers.rmsnorm({"scale": jnp.asarray(scale)}, jx)
+    t = tlayers.rmsnorm({"scale": torch.from_numpy(scale)}, tx)
+    assert t.dtype == tx.dtype
+    _close(j, t, atol * 4)  # outputs reach |y| ~ 8
+    init = tlayers.rmsnorm_init(32)
+    assert init["scale"].shape == (32,) and float(init["scale"].sum()) == 32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_keep_rate_scaling_and_dtype(dtype):
+    """Masks cannot match JAX's bit for bit; the statistics must: the
+    keep rate within 5 sigma of 0.75 over 2**16 draws, kept values
+    scaled by exactly 1/keep (4/3, rounded once in bf16), the dtype
+    kept."""
+    x = torch.full((256, 256), 1.5, dtype=dtype)
+    y = tlayers.dropout(x, 0.25, torch.Generator().manual_seed(0))
+    assert y.dtype == dtype and y.shape == x.shape
+    kept = y != 0
+    n = x.numel()
+    sigma = (0.75 * 0.25 / n) ** 0.5
+    assert abs(kept.float().mean().item() - 0.75) < 5 * sigma
+    assert torch.equal(y[kept], (x / 0.75)[kept])
+
+
+def test_dropout_same_seed_same_mask():
+    x = torch.ones((64, 64))
+    a, b, c = (tlayers.dropout(x, 0.5, torch.Generator().manual_seed(s))
+               for s in (1, 1, 2))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert tlayers.dropout(x, 0.5, None) is x  # not training
+    assert tlayers.dropout(x, 0.0, torch.Generator()) is x
+    seeds = {tlayers.fold_seed(3, i) for i in range(100)}
+    assert len(seeds) == 100 and tlayers.fold_seed(3, 0) == tlayers.fold_seed(
+        3, 0)
+    assert all(0 <= s < 2 ** 63 for s in seeds)
 
 
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "determined_clone_tpu")
