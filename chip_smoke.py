@@ -42,16 +42,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    block's forward), ms/step, tokens/s, MFU, peak memory, the device's
    busy share over one profiled step; and one step through flash and
    one through ``mha`` from the same weights agreeing within
-   ``TRAIN_TOL``.
+   ``TRAIN_TOL``;
+7. the trainer loop: the port's ``GPTTrial``
+   (``determined_clone_tpu_torch/examples/gpt_fsdp.py``) at
+   ``examples/gpt_fsdp/fsdp.yaml``'s hyperparameters on one card, through
+   ``core.init(config=...)`` → ``Trainer(trial).fit()`` with checkpoints
+   in a temporary directory: 20 batches (``scheduling_unit`` 10,
+   validation and checkpoint periods of 10), then a second ``fit`` that
+   restores the last checkpoint and trains to 40. Checks: 20 then 40
+   batches trained, training reports at 10, 20, 30, 40 and validation
+   reports at 10, 20, 20, 30, 40, 40 (each op ends in a validation);
+   every loss finite, the first within 0.5 of ln(vocab); the checkpoint,
+   loaded back with ``load_pytree``, equal bit for bit to leg 1's params
+   and Adam moments, its step and Adam count 20; the resumed leg's first
+   batch equal to batch 21 of the trial's stream (the replay); the first
+   batches the CUDA prefetcher hands over, each copy queued behind busy
+   work on the side stream and read at once, equal to the host's (the
+   stream wait); no ``*prefetch*`` thread alive after either fit; and
+   the flash kernel launched
+   ``2 * n_layers`` times per trained batch plus ``n_layers`` per eval
+   batch over the two legs. Prints each leg's samples/s per chunk beside
+   phase 6's bare step, checkpoint save and restore seconds and bytes,
+   and 10 batches at ``prefetch_depth`` 0 and 2 with their queue waits.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
-training phase included. The launch count in each kernel's entry is
+training phases included. The launch count in each kernel's entry is
 that of phase 3, the uncached forward (the engine's paged forward
 attends with plain ``mha``, as in the JAX package); ``train_launches``
-is that of phase 6's 32 steps. The last three lines are the kernels'
-JSON line, the card's name and power limit, and the result. Details go
-to ``smoke_out/chip_smoke.json``. Exits non-zero, printing no result,
-when CUDA is unavailable.
+is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
+two legs. The last three lines are the kernels' JSON line, the card's
+name and power limit, and the result. Details go to
+``smoke_out/chip_smoke.json``. Exits non-zero, printing no result, when
+CUDA is unavailable.
 """
 from __future__ import annotations
 
@@ -804,6 +826,288 @@ def phase_train() -> dict:
             "profile": prof, "flash_vs_mha": flash_vs_mha_step(cfg, tokens)}
 
 
+# examples/gpt_fsdp/fsdp.yaml's hyperparameters, on one card (no mesh)
+GPT_FSDP_HPARAMS = {"global_batch_size": 8, "lr": 3.0e-4, "weight_decay": 0.1,
+                    "vocab_size": 50304, "n_layers": 12, "d_model": 768,
+                    "n_heads": 12, "d_ff": 3072, "seq_len": 1024,
+                    "remat": True, "attention_impl": "auto"}
+
+
+class _BatchTimings:
+    """The profiler hook the trainer calls at each chunk boundary
+    (``record_batch_timing``, as the JAX package's ProfilerAgent)."""
+
+    def __init__(self) -> None:
+        self.rows = []
+
+    def record_batch_timing(self, batches, **timing) -> None:
+        self.rows.append({"batches": batches, **timing})
+
+
+def _trial_classes():
+    """The port's GPT trial, recording the first batch it trains on, and
+    a Trainer that times its checkpoint saves and restores."""
+    import torch
+
+    from determined_clone_tpu_torch.examples.gpt_fsdp import GPTTrial
+    from determined_clone_tpu_torch.training import Trainer
+
+    class RecordingGPTTrial(GPTTrial):
+        first_batch = None
+
+        def loss(self, params, batch, seed):
+            if self.first_batch is None and torch.is_grad_enabled():
+                self.first_batch = batch.cpu().numpy()
+            return super().loss(params, batch, seed)
+
+    class TimedTrainer(Trainer):
+        def __init__(self, trial):
+            super().__init__(trial)
+            self.save_s, self.restore_s = [], []
+
+        def _save(self, *args, **kwargs):
+            t0 = time.monotonic()
+            out = super()._save(*args, **kwargs)
+            self.save_s.append(time.monotonic() - t0)
+            return out
+
+        def _restore_one(self, *args, **kwargs):
+            t0 = time.monotonic()
+            out = super()._restore_one(*args, **kwargs)
+            self.restore_s.append(time.monotonic() - t0)
+            return out
+
+    return RecordingGPTTrial, TimedTrainer
+
+
+def fit_trial(storage, max_batches, *, latest=None, extra=None) -> dict:
+    """``core.init(config=...)`` → ``Trainer(GPTTrial).fit()``: what a
+    user of the port calls to train a trial. Returns the result, the
+    reports, the final state, the first batch trained and the timings."""
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.training import TrialContext
+
+    trial_cls, trainer_cls = _trial_classes()
+    cfg = ExperimentConfig.from_dict({
+        "searcher": {"name": "single", "metric": "loss",
+                     "max_length": {"batches": max_batches}},
+        "scheduling_unit": 10,
+        "checkpoint_storage": {"type": "shared_fs", "host_path": storage},
+        "hyperparameters": GPT_FSDP_HPARAMS,
+        "resources": {"slots_per_trial": 1},
+        **(extra or {})})
+    with core.init(config=cfg, trial_id=1) as ctx:
+        timings = ctx.profiler = _BatchTimings()
+        trial = trial_cls(TrialContext(config=cfg, hparams=GPT_FSDP_HPARAMS,
+                                       core=ctx))
+        trainer = trainer_cls(trial)
+        t0 = time.monotonic()
+        result = trainer.fit(latest_checkpoint=latest)
+        wall = time.monotonic() - t0
+        records = list(ctx.train._backend.records)
+    return {"result": result, "wall_s": wall, "trial": trial,
+            "state": trainer._final_state, "first_batch": trial.first_batch,
+            "save_s": trainer.save_s, "restore_s": trainer.restore_s,
+            "timings": timings.rows,
+            "training": [(r["steps_completed"], r["metrics"])
+                         for r in records if r["group"] == "training"],
+            "validation": [(r["steps_completed"], r["metrics"])
+                           for r in records if r["group"] == "validation"]}
+
+
+def _prefetch_threads() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if "prefetch" in t.name and t.is_alive()]
+
+
+def check_prefetched_batches(batches, n=6) -> int:
+    """The first ``n`` batches the CUDA prefetcher hands over equal the
+    host's. The copy is made the slow side: the producer queues four
+    4096² fp32 matrix products (~3 ms each with TF32 off) on the
+    stager's side stream before each batch's copy, and the consumer
+    reads each batch at once on its idle stream. A ``ready`` that does
+    not make that stream wait for the copy's event reads the batch
+    before its copy has run, and the check fails."""
+    import numpy as np
+    import torch
+
+    from determined_clone_tpu_torch.utils.data import (
+        CudaStager,
+        make_device_feeder,
+    )
+
+    it = iter(batches)
+    host = [next(it) for _ in range(n)]
+    stager = CudaStager("cuda")
+    busy = [torch.randn(4096, 4096, device="cuda")]
+    torch.cuda.synchronize()
+
+    def slow_put(batch):
+        with torch.cuda.stream(stager.stream):
+            for _ in range(4):
+                busy[0] = torch.tanh(busy[0] @ busy[0] * 1e-3)
+        return stager.put(batch)
+
+    feed = make_device_feeder(iter(host), slow_put, depth=2,
+                              name="check-prefetch", ready=stager.ready)
+    try:
+        for i, want in enumerate(host):
+            got = next(feed)
+            copy = (got + 0).cpu().numpy()  # read on the consumer's stream
+            if not np.array_equal(copy, want):
+                raise AssertionError(f"prefetched batch {i} differs from "
+                                     f"the host's")
+    finally:
+        feed.close()
+    return n
+
+
+def phase_trial(bare_samples_per_s) -> dict:
+    """Phase 7: the GPT trial through the trainer loop, 20 batches then a
+    restore from the last checkpoint to 40, with the checks of the module
+    docstring; then 10 batches at prefetch depth 0 and at depth 2."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.training.optim import leaves
+
+    hparams = GPT_FSDP_HPARAMS
+    storage = tempfile.mkdtemp(prefix="chip-smoke-trial-")
+    periods = {"min_validation_period": {"batches": 10},
+               "min_checkpoint_period": {"batches": 10}}
+    try:
+        flash_attention.launches = 0
+        leg1 = fit_trial(storage, 20, extra=periods)
+        registry = core.LocalCheckpointRegistry(
+            os.path.join(storage, "checkpoints.jsonl"))
+        ckpts = registry.list()
+        last = ckpts[-1]
+        threads_after_1 = _prefetch_threads()
+        leg2 = fit_trial(storage, 40, latest=last["storage_id"],
+                         extra=periods)
+        launches = flash_attention.launches
+        threads_after_2 = _prefetch_threads()
+
+        # the checkpoint, loaded back, against the state that leg 1 ended in
+        state1 = leg1["state"]
+        with core.init(config=None, storage_path=storage) as ctx:
+            with ctx.checkpoint.restore_path(last["storage_id"]) as path:
+                loaded = core.load_pytree(os.path.join(path, "state"), state1)
+        adam1, adam_l = state1.opt_state[1][0], loaded.opt_state[1][0]
+        pairs = list(zip(leaves(state1.params), leaves(loaded.params)))
+        pairs += list(zip(leaves(adam1.mu), leaves(adam_l.mu)))
+        pairs += list(zip(leaves(adam1.nu), leaves(adam_l.nu)))
+        bitwise = all(torch.equal(a.detach(), b) for a, b in pairs)
+        ckpt_bytes = sum(last["resources"].values())
+        restored = (loaded.step, adam_l.count)
+        del loaded, pairs, adam1, adam_l, state1
+        leg1["state"] = None
+
+        it = leg1["trial"].training_data()
+        for _ in range(20):
+            next(it)
+        batch21 = next(it)
+        # batches from 64 on, which no fit of this run staged: memory that
+        # a read reaches before its copy cannot hold them already
+        for _ in range(64 - 21):
+            next(it)
+        fed = check_prefetched_batches(it)
+
+        # 10 batches at each prefetch depth, nothing saved
+        depth_runs = {}
+        for depth in (0, 2):
+            run = fit_trial(storage, 10, extra={
+                "checkpoint_policy": "none",
+                "optimizations": {"prefetch_depth": depth}})
+            depth_runs[depth] = {
+                "samples_per_s": run["training"][0][1]["samples_per_second"],
+                "queue_wait_s": run["timings"][0]["queue_wait_s"],
+                "host_input_s": run["timings"][0]["dataloading_s"],
+                "wall_s": run["wall_s"]}
+            run["state"] = None
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+    reports = {"leg1": leg1, "leg2": leg2}
+    losses = [m["loss"] for leg in reports.values()
+              for group in ("training", "validation")
+              for _, m in leg[group]]
+    n_eval = len(leg1["validation"]) + len(leg2["validation"])
+    per_step = 2 * hparams["n_layers"] if hparams["remat"] else hparams[
+        "n_layers"]
+    want_launches = per_step * 40 + hparams["n_layers"] * n_eval
+    ln_v = math.log(hparams["vocab_size"])
+    checks = {
+        "batches_trained 20 then 40": (
+            leg1["result"]["batches_trained"] == 20
+            and leg2["result"]["batches_trained"] == 40),
+        "training reports at 10, 20 then 30, 40": (
+            [s for s, _ in leg1["training"]] == [10, 20]
+            and [s for s, _ in leg2["training"]] == [30, 40]),
+        "validation reports at 10, 20, 20 then 30, 40, 40": (
+            [s for s, _ in leg1["validation"]] == [10, 20, 20]
+            and [s for s, _ in leg2["validation"]] == [30, 40, 40]),
+        "every loss finite": all(math.isfinite(x) for x in losses),
+        "first training loss within 0.5 of ln(vocab)": abs(
+            leg1["training"][0][1]["loss"] - ln_v) <= 0.5,
+        "checkpoint equals leg 1's state bit for bit": bitwise,
+        "restored step 20, Adam count 20": restored == (20, 20),
+        "resumed leg trains batch 21 first": np.array_equal(
+            leg2["first_batch"], batch21),
+        "leg 2 ends at step 40, Adam count 40": (
+            leg2["state"].step == 40
+            and leg2["state"].opt_state[1][0].count == 40),
+        "no prefetch thread alive after either fit": (
+            threads_after_1 == [] and threads_after_2 == []
+            and _prefetch_threads() == []),
+        f"flash launches {want_launches} ({per_step} x 40 + "
+        f"{hparams['n_layers']} x {n_eval} eval batches)":
+            launches == want_launches,
+    }
+    leg2["state"] = None
+    def fmt(values, digits):
+        return ", ".join(f"{v:.{digits}f}" for v in values)
+
+    for leg_name, leg in reports.items():
+        sps = [m["samples_per_second"] for _, m in leg["training"]]
+        log(f"[trial] {leg_name}: samples/s per chunk {fmt(sps, 3)} (bare "
+            f"step, phase 6: {bare_samples_per_s:.3f}); training loss "
+            f"{fmt([m['loss'] for _, m in leg['training']], 4)}; validation "
+            f"{fmt([m['loss'] for _, m in leg['validation']], 4)}; saves "
+            f"{fmt(leg['save_s'], 2)} s; restores {fmt(leg['restore_s'], 2)}"
+            f" s; fit {leg['wall_s']:.2f} s")
+    log(f"[trial] checkpoint {ckpt_bytes} bytes ({ckpt_bytes / 2**30:.3f} "
+        f"GiB); flash launches over the two legs {launches}; prefetched "
+        f"batches checked {fed}")
+    for depth, r in depth_runs.items():
+        log(f"[trial] prefetch_depth {depth}: {r['samples_per_s']:.3f} "
+            f"samples/s over 10 batches, queue wait {r['queue_wait_s']:.4f} "
+            f"s, host input {r['host_input_s']:.4f} s, fit {r['wall_s']:.2f}"
+            f" s")
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"[trial] check {'ok' if ok else 'FAILED'}: {name}")
+    if failed:
+        raise AssertionError(f"phase 7 checks failed: {failed}")
+    strip = ("trial", "state", "first_batch")
+    return {"legs": {k: {f: v for f, v in leg.items() if f not in strip}
+                     for k, leg in reports.items()},
+            "checkpoint_bytes": ckpt_bytes, "launches": launches,
+            "eval_batches": n_eval, "prefetch_depths": depth_runs,
+            "prefetched_batches_checked": fed,
+            "bare_step_samples_per_s": bare_samples_per_s,
+            "checks": checks}
+
+
 def kernel_entry(case: dict) -> dict:
     return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "call_ms": case["call_ms"], "plain_ms": case["plain_ms"],
@@ -841,6 +1145,7 @@ def main(argv) -> int:
     del params
     report["attention_grad"] = phase_attention_grad()
     report["train"] = phase_train()
+    report["trial"] = phase_trial(report["train"]["samples_per_s"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -856,6 +1161,7 @@ def main(argv) -> int:
         "launches": report["forward"]["launches"],
         "train_launches": report["train"]["launches"],
         "train_launches_per_step": report["train"]["launches_per_step"],
+        "trial_launches": report["trial"]["launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

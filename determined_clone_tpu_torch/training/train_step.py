@@ -15,6 +15,7 @@ import dataclasses
 import inspect
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from determined_clone_tpu_torch.ops.layers import fold_seed
@@ -33,12 +34,34 @@ Metrics = Dict[str, torch.Tensor]
 class TrainState:
     """Params, optimizer state, step, and a seed in place of the JAX
     rng key: step ``n`` draws its randomness from ``fold_seed(seed, n)``,
-    as the JAX step splits a fresh key from its carried one."""
+    as the JAX step splits a fresh key from its carried one.
+
+    In a checkpoint (``core/_serialization.py``) its children are
+    positional, as the JAX ``TrainState`` registers them: ``0`` params,
+    ``1`` optimizer state, ``2`` the step as int32 and ``3`` the seed as
+    the two uint32 words of a JAX PRNG key, high word first
+    (``jax.random.PRNGKey(s)`` is ``[s >> 32, s & 0xffffffff]``). So the
+    seed crosses frameworks losslessly, and a JAX key read here becomes
+    the seed of those two words. The random streams drawn from it do
+    not: dropout masks differ between the frameworks, so a trial that
+    draws randomness does not continue the same stream after moving.
+    """
 
     params: Any
     opt_state: Any
     step: int
     seed: int
+
+    def tree_flatten(self) -> tuple:
+        key = np.array([(self.seed >> 32) & 0xFFFFFFFF,
+                        self.seed & 0xFFFFFFFF], np.uint32)
+        return self.params, self.opt_state, np.int32(self.step), key
+
+    @classmethod
+    def tree_unflatten(cls, children) -> "TrainState":
+        params, opt_state, step, key = children
+        hi, lo = (int(w) for w in np.asarray(key, np.uint32))
+        return cls(params, opt_state, int(step), (hi << 32) | lo)
 
 
 def create_train_state(params: Any, tx: Optimizer, seed: int) -> TrainState:
@@ -71,14 +94,16 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, *,
         out = loss_fn(state.params, batch, fold_seed(state.seed, state.step))
         loss, metrics = out if isinstance(out, tuple) else (out, {})
         grads = torch.autograd.grad(loss, leaves(state.params))
-        gnorm = global_norm(list(grads))
+        # copied before the update: a metric may alias a parameter (a
+        # metric of ``params["w"]``), which the update overwrites in place,
+        # and the JAX step reports the value before the update
+        out_metrics = {"loss": loss.detach().float(),
+                       "grad_norm": global_norm(list(grads)).float(),
+                       **{k: v.detach().clone() for k, v in metrics.items()}}
         opt_state = tx.update(unflatten(state.params, list(grads)),
                               state.opt_state, state.params)
-        new_state = TrainState(state.params, opt_state, state.step + 1,
-                               state.seed)
-        return new_state, {"loss": loss.detach().float(),
-                           "grad_norm": gnorm.float(),
-                           **{k: v.detach() for k, v in metrics.items()}}
+        return TrainState(state.params, opt_state, state.step + 1,
+                          state.seed), out_metrics
 
     k = int(steps_per_dispatch)
     if k < 1:

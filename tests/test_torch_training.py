@@ -262,7 +262,9 @@ def test_adamw_step_matches_optax(jax_params):
     jstate, jm = jstep(jstate, jnp.asarray(batch))
     tstate, tstep = _port_state_and_step(tcfg, _port(jax_params), ttx)
     tstate, tm = tstep(tstate, torch.from_numpy(batch))
-    assert tstate.step == 1 and tstate.opt_state.count == 1
+    # optax's adamw state layout: (ScaleByAdamState, EmptyState, EmptyState)
+    assert tstate.step == 1 and tstate.opt_state[0].count == 1
+    assert tstate.opt_state[1:] == (optim.EmptyState(), optim.EmptyState())
     assert abs(float(jm["loss"]) - float(tm["loss"])) <= 1e-5
     assert abs(float(jm["grad_norm"]) / float(tm["grad_norm"]) - 1) <= 1e-5
     for j, t, g in zip(jax.tree.leaves(jstate.params),
@@ -322,10 +324,10 @@ def test_fused_steps_equal_single_steps(jax_params):
     fused = tts.make_train_step(loss, tx, steps_per_dispatch=2)
     s2, summed = fused(tts.create_train_state(_port(jax_params), tx, seed=5),
                        *batches)
-    assert (s1.step, s1.seed, s1.opt_state.count) == (
-        s2.step, s2.seed, s2.opt_state.count) == (2, 5, 2)
-    for tree in (lambda s: s.params, lambda s: s.opt_state.mu,
-                 lambda s: s.opt_state.nu):
+    assert (s1.step, s1.seed, s1.opt_state[0].count) == (
+        s2.step, s2.seed, s2.opt_state[0].count) == (2, 5, 2)
+    for tree in (lambda s: s.params, lambda s: s.opt_state[0].mu,
+                 lambda s: s.opt_state[0].nu):
         for a, b in zip(optim.leaves(tree(s1)), optim.leaves(tree(s2))):
             assert torch.equal(a, b)
     assert set(summed) == {"loss", "grad_norm", "tokens"}
@@ -335,6 +337,22 @@ def test_fused_steps_equal_single_steps(jax_params):
         fused(s2, batches[0])
     with pytest.raises(ValueError, match="steps_per_dispatch"):
         tts.make_train_step(loss, tx, steps_per_dispatch=0)
+
+
+def test_step_metrics_report_params_before_the_update():
+    """A metric that aliases a parameter reports its value before the
+    step's in-place update, as the JAX step (which returns new arrays)
+    reports it."""
+    params = {"w": torch.tensor(1.0)}
+    tx = optim.sgd(0.25)
+
+    def loss(p, b, seed):
+        return (p["w"] - 3.0) ** 2, {"w": p["w"]}
+
+    state = tts.create_train_state(params, tx, seed=0)
+    state, m = tts.make_train_step(loss, tx)(state, None)
+    assert float(m["w"]) == 1.0 and float(state.params["w"].detach()) == 2.0
+    assert float(m["loss"]) == 4.0 and float(m["grad_norm"]) == 4.0
 
 
 def test_eval_step_and_metric_accumulator(jax_params):
@@ -373,7 +391,9 @@ def test_sgd_and_param_count(jax_params):
     before = [p.clone() for p in optim.leaves(params)]
     grads = optim.tree_map(torch.ones_like, params)
     tx = optim.sgd(0.5)
-    assert tx.update(grads, tx.init(params), params) is None
+    empty = (optim.EmptyState(), optim.EmptyState())  # optax.sgd's state
+    assert tx.init(params) == empty
+    assert tx.update(grads, tx.init(params), params) == empty
     for b, p in zip(before, optim.leaves(params)):
         assert torch.equal(p, b - 0.5)
     assert tts.param_count(params) == jts.param_count(jax_params)
@@ -392,10 +412,11 @@ def test_adam_state_from_numpy_resumes_a_jax_run(jax_params):
     assert adam_state.count == 1
     tstate, tstep = _port_state_and_step(
         tcfg, convert.params_from_numpy(host.params, "cpu"), ttx)
-    tstate = dataclasses.replace(tstate, opt_state=adam_state)
+    tstate = dataclasses.replace(
+        tstate, opt_state=(adam_state,) + tstate.opt_state[1:])
     jstate, jm = jstep(jstate, jnp.asarray(batches[1]))
     tstate, tm = tstep(tstate, torch.from_numpy(batches[1]))
-    assert tstate.opt_state.count == 2
+    assert tstate.opt_state[0].count == 2
     assert abs(float(jm["loss"]) - float(tm["loss"])) <= 1e-5
     # Adam's second update is no longer a sign: the moments carry the
     # first step's gradient, so the parameters agree far inside lr
@@ -405,7 +426,7 @@ def test_adam_state_from_numpy_resumes_a_jax_run(jax_params):
                                    rtol=0, atol=LR / 100)
     for name in ("mu", "nu"):
         for j, t in zip(jax.tree.leaves(getattr(jstate.opt_state[0], name)),
-                        optim.leaves(getattr(tstate.opt_state, name))):
+                        optim.leaves(getattr(tstate.opt_state[0], name))):
             j = np.asarray(j)
             np.testing.assert_allclose(t.numpy(), j, rtol=0,
                                        atol=1e-5 * np.abs(j).max() + 1e-30)
