@@ -63,14 +63,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``2 * n_layers`` times per trained batch plus ``n_layers`` per eval
    batch over the two legs. Prints each leg's samples/s per chunk beside
    phase 6's bare step, checkpoint save and restore seconds and bytes,
-   and 10 batches at ``prefetch_depth`` 0 and 2 with their queue waits.
+   and 10 batches at ``prefetch_depth`` 0 and 2 with their queue waits;
+8. the model families, each through ``core.init`` → ``Trainer.fit`` (or
+   the Core API ``main``) with checkpoints in a temporary directory, the
+   flash kernel's launch count set to 0 before and read after (they
+   attend through plain ``mha``, as in the JAX package: no launch): (a)
+   BASELINE #1, ``MnistTrial`` at ``examples/mnist/const.yaml`` read with
+   ``ExperimentConfig.from_yaml``, 400 batches, best validation accuracy
+   above ``MNIST_GATE``; (b) BASELINE #3, ``ResNetTrial`` at
+   ``examples/resnet50/distributed.yaml`` cut to one card
+   (``resnet_config``), 20 batches: every loss finite, the first within
+   1.0 of the initial logits' chance-level loss, one bf16 and one fp32
+   step from the same weights within ``BF16_STEP_REL``; bare steps timed,
+   one profiled (busy share, top kernels), peak memory; (c) BASELINE #4,
+   the BERT fine-tune's ``main`` at bert-base widths (seq 128, batch 32,
+   bf16), preempted at 30 through a ``FilePreemptionSource`` and resumed
+   from its checkpoint to 60: the preemption, reports at 40, 50, 60, the
+   ``state.pkl`` arrays numpy fp32 under ``bert.init``'s tree, finite
+   losses, a bf16 and an fp32 step within ``BF16_STEP_REL``; (d)
+   ViT-S/16 (the hub's ``ViTClassificationTrial``) and the detector at
+   ``DetectorConfig()``, 10 batches each, every loss finite. Prints each
+   trial's samples/s and ms/step per report.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
 that of phase 3, the uncached forward (the engine's paged forward
 attends with plain ``mha``, as in the JAX package); ``train_launches``
 is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
-two legs. The last three lines are the kernels' JSON line, the card's
+two legs; phase 8 launches none. The last three lines are the kernels' JSON line, the card's
 name and power limit, and the result. Details go to
 ``smoke_out/chip_smoke.json``. Exits non-zero, printing no result, when
 CUDA is unavailable.
@@ -449,11 +469,12 @@ def phase_engine(params, cfg) -> dict:
             "flash_greedy_agreement": same / tokens}
 
 
-def profile_window(fn, label, out_lines) -> dict:
+def profile_window(fn, label, out_lines, op_keys=()) -> dict:
     """Run ``fn`` under torch.profiler; the device time of its kernels,
     summed (one stream, so no two overlap), and the top kernels. Only
-    kernel rows count: an operator's row repeats its kernels' time.
-    Appends the full table to ``out_lines``."""
+    kernel rows count: an operator's row repeats its kernels' time. With
+    ``op_keys``, also the device time of those operators' own kernels
+    (``ops_ms``). Appends the full table to ``out_lines``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -471,7 +492,11 @@ def profile_window(fn, label, out_lines) -> dict:
                                  row_limit=30)]
     top = [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
             "calls": e.count} for e in kernels[:8]]
-    return {"device_ms": total_us / 1e3, "top": top}
+    out = {"device_ms": total_us / 1e3, "top": top}
+    if op_keys:
+        out["ops_ms"] = {e.key: e.self_device_time_total / 1e3
+                         for e in averages if e.key in op_keys}
+    return out
 
 
 def phase_profile(params, cfg, engine_wall_s) -> dict:
@@ -1108,6 +1133,492 @@ def phase_trial(bare_samples_per_s) -> dict:
             "checks": checks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the model families (BASELINE configs #1, #3 and #4, ViT and the
+# detector), each trained through core.init -> Trainer.fit (or main)
+# ---------------------------------------------------------------------------
+
+RESNET_TRAIN_BATCHES, RESNET_BATCH, RESNET_IMAGES = 20, 32, 640
+BERT_BATCHES, BERT_PREEMPT_AT = 60, 30
+# bert-base widths; seq 128 is a GLUE fine-tune length
+BERT_BASE = {"vocab_size": 30522, "n_layers": 12, "d_model": 768,
+             "n_heads": 12, "d_ff": 3072, "seq_len": 128,
+             "global_batch_size": 32}
+VIT_S16 = {"image_size": 224, "patch_size": 16, "channels": 3,
+           "n_classes": 1000, "d_model": 384, "n_layers": 12, "n_heads": 6,
+           "d_ff": 1536, "global_batch_size": 32, "n_train": 320}
+VISION_BATCHES = 10
+# the operators whose kernels are the convolutions of a ResNet step
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
+MNIST_GATE = 0.97        # BASELINE.md's accuracy gate for config #1
+BF16_STEP_REL = 0.01     # a bf16 step's loss against an fp32 one's
+
+
+def _read_yaml(rel_path) -> dict:
+    import yaml
+
+    with open(os.path.join(REPO, rel_path)) as f:
+        return yaml.safe_load(f)
+
+
+def fit_family(trial_cls, cfg, hparams, storage, device="cuda") -> dict:
+    """``core.init(config=...)`` → ``Trainer(trial).fit()`` with
+    checkpoints under ``storage``: the reports, the result and the wall
+    time."""
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.training import Trainer, TrialContext
+
+    with core.init(config=cfg, storage_path=storage, trial_id=1) as ctx:
+        trial = trial_cls(TrialContext(config=cfg, hparams=hparams,
+                                       core=ctx, device=device))
+        trainer = Trainer(trial)
+        t0 = time.monotonic()
+        result = trainer.fit()
+        wall = time.monotonic() - t0
+        records = list(ctx.train._backend.records)
+    return {"result": result, "wall_s": wall, "trial": trial,
+            "state": trainer._final_state,
+            "training": [(r["steps_completed"], r["metrics"])
+                         for r in records if r["group"] == "training"],
+            "validation": [(r["steps_completed"], r["metrics"])
+                           for r in records if r["group"] == "validation"]}
+
+
+def _losses(run) -> list:
+    return [m["loss"] for group in ("training", "validation")
+            for _, m in run[group] if "loss" in m]
+
+
+def _rate_line(name, run, batch) -> str:
+    sps = [m["samples_per_second"] for _, m in run["training"]]
+    return (f"[families] {name}: samples/s per report "
+            f"{', '.join(f'{v:.2f}' for v in sps)} (ms/step "
+            f"{', '.join(f'{batch / v * 1e3:.2f}' for v in sps)}); losses "
+            f"{', '.join(f'{v:.4f}' for v in _losses(run))}; fit "
+            f"{run['wall_s']:.2f} s")
+
+
+def dtype_steps(init_fn, cfg, loss_fn, tx_fn, batch, seed,
+                device="cuda") -> dict:
+    """One train step in bf16 and one in fp32 from the same weights and
+    batch: their losses (taken before the update), and how far apart."""
+    import torch
+
+    from determined_clone_tpu_torch.training.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    out = {}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        params = init_fn(torch.Generator(device=device).manual_seed(seed), c,
+                         device)
+        tx = tx_fn()
+        state = create_train_state(params, tx, seed)
+        step = make_train_step(lambda p, b, s, c=c: (loss_fn(p, c, *b), {}),
+                               tx)
+        _, m = step(state, batch)
+        out[name] = float(m["loss"])
+        del state, params
+    out["rel"] = abs(out["bf16"] / out["fp32"] - 1)
+    return out
+
+
+def family_mnist(storage, device="cuda") -> dict:
+    """BASELINE #1: the port's MnistTrial at ``examples/mnist/const.yaml``
+    (read as the platform reads it), 400 batches on the digit scans."""
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.examples.mnist import MnistTrial
+
+    cfg = ExperimentConfig.from_yaml(
+        os.path.join(REPO, "examples", "mnist", "const.yaml"))
+    run = fit_family(MnistTrial, cfg, cfg.hyperparameters, storage, device)
+    accs = [m["accuracy"] for _, m in run["validation"]]
+    run["best_accuracy"] = max(accs)
+    log(_rate_line("mnist", run, cfg.hyperparameters["global_batch_size"]))
+    log(f"[families] mnist: validation accuracy "
+        f"{', '.join(f'{a:.4f}' for a in accs)} at "
+        f"{', '.join(str(s) for s, _ in run['validation'])}")
+    return run
+
+
+def resnet_config():
+    """``examples/resnet50/distributed.yaml`` cut to one card: global
+    batch 256 → 32 (the yaml's per-chip batch), the mesh dropped, slots
+    8 → 1, 200 → 20 batches, ``scheduling_unit`` 20 → 5 (four reports),
+    and synthetic images 4096 → 640 (the 20 batches trained)."""
+    from determined_clone_tpu_torch.config import ExperimentConfig
+
+    raw = _read_yaml(os.path.join("examples", "resnet50",
+                                  "distributed.yaml"))
+    hp = {k: v for k, v in raw["hyperparameters"].items() if k != "mesh"}
+    hp.update(global_batch_size=RESNET_BATCH, n_train=RESNET_IMAGES)
+    raw.update(hyperparameters=hp, resources={"slots_per_trial": 1},
+               searcher={**raw["searcher"], "max_length": {
+                   "batches": RESNET_TRAIN_BATCHES}},
+               scheduling_unit=5)
+    return ExperimentConfig.from_dict(raw), hp
+
+
+def _first_step_trial(base):
+    """``base`` (the ResNet trial) keeping its first training batch's loss
+    and that batch's chance-level loss under the initial params: the mean
+    over examples of ``logsumexp(z) - mean(z)``, the loss of labels that
+    the initial logits ``z`` know nothing of. It is not ln 1000: the GN
+    ResNet's residual stream grows unnormalised through the blocks, so its
+    initial logits spread (the JAX package's ResNet-50 at init gives
+    chance-level losses of 7.64-7.66 and first losses of 8.05-8.48 at
+    B=4 on 64×64 inputs), and the first loss differs from the chance
+    level by the label logits' mean, ~σ/√B."""
+    import torch
+
+    from determined_clone_tpu_torch.models import resnet
+
+    class FirstStep(base):
+        first = None
+
+        def loss(self, params, batch, seed):
+            out = super().loss(params, batch, seed)
+            if self.first is None and torch.is_grad_enabled():
+                with torch.no_grad():
+                    z = resnet.apply(params, self.cfg, batch[0]).float()
+                chance = (torch.logsumexp(z, -1) - z.mean(-1)).mean()
+                self.first = (float(out[0].detach()), float(chance))
+            return out
+
+    return FirstStep
+
+
+def family_resnet(storage, lines, device="cuda") -> dict:
+    """BASELINE #3: ResNet-50-GN through the trainer, then on one batch:
+    bare steps timed, one step profiled, and a bf16 against an fp32
+    step."""
+    import math
+    import statistics
+
+    import torch
+
+    from determined_clone_tpu_torch.examples.resnet50 import ResNetTrial
+    from determined_clone_tpu_torch.models import resnet
+    from determined_clone_tpu_torch.training import optim
+    from determined_clone_tpu_torch.training.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+    from determined_clone_tpu_torch.utils.data import batch_to_device
+
+    cfg, hp = resnet_config()
+    torch.cuda.reset_peak_memory_stats()
+    run = fit_family(_first_step_trial(ResNetTrial), cfg, hp, storage,
+                     device)
+    run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(_rate_line("resnet50", run, hp["global_batch_size"]))
+    trial = run.pop("trial")
+    run["first_loss"], run["chance_loss"] = trial.first
+    batch = batch_to_device(next(iter(trial.training_data())), device)
+    run["state"] = None
+
+    def tx():
+        return optim.chain(optim.clip_by_global_norm(1.0),
+                           optim.adamw(float(hp["lr"])))
+
+    state = create_train_state(
+        resnet.init(torch.Generator(device=device).manual_seed(0),
+                    trial.cfg, device), tx(), 0)
+    step = make_train_step(
+        lambda p, b, s: (resnet.loss_fn(p, trial.cfg, *b), {}), tx())
+    box = [state]
+
+    def one_step():
+        box[0], m = step(box[0], batch)
+        return m
+
+    for _ in range(2):
+        one_step()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        float(one_step()["loss"])
+        times.append(time.monotonic() - t0)
+    step_s = statistics.median(times)
+    prof = profile_window(one_step, "resnet50 train step B=32", lines,
+                          op_keys=CONV_OPS)
+    prof["busy_share"] = prof["device_ms"] / 1e3 / step_s
+    conv_ms = sum(prof["ops_ms"].values())
+    del box, state
+    run["bare_step_ms"] = step_s * 1e3
+    run["profile"] = prof
+    run["dtype_steps"] = dtype_steps(resnet.init, trial.cfg, resnet.loss_fn,
+                                     tx, batch, seed=1, device=device)
+    top = "; ".join(f"{t['name'][:60]} {t['ms']:.2f} ms x{t['calls']}"
+                    for t in prof["top"])
+    log(f"[families] resnet50: first step loss {run['first_loss']:.4f}, "
+        f"chance-level {run['chance_loss']:.4f} (ln 1000 = "
+        f"{math.log(1000):.4f}); bare step {step_s * 1e3:.2f} ms "
+        f"({hp['global_batch_size'] / step_s:.2f} samples/s), device "
+        f"{prof['device_ms']:.2f} ms, busy share {prof['busy_share']:.3f}, "
+        f"peak memory {run['peak_memory_bytes'] / 2**30:.2f} GiB; "
+        f"convolutions (cuDNN, forward and backward) {conv_ms:.2f} ms, "
+        f"the rest (GroupNorm's fp32 passes, ReLU, residual adds, pool, "
+        f"loss, AdamW) {prof['device_ms'] - conv_ms:.2f} ms; top kernels: "
+        f"{top}")
+    d = run["dtype_steps"]
+    log(f"[families] resnet50: one step from the same weights, loss bf16 "
+        f"{d['bf16']:.6f} vs fp32 {d['fp32']:.6f} ({d['rel']:.2e} apart)")
+    return run
+
+
+def bert_leg(storage, hparams, latest, preempt_at=None, device="cuda"):
+    """One leg of the fine-tune: ``core.init`` → the port's ``main``.
+    With ``preempt_at``, the metrics backend creates the flag that a
+    ``FilePreemptionSource`` polls at that training report and waits
+    until the watcher has seen it, so the leg stops right after that
+    batch. The backend keeps each training report's time."""
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.examples import bert_finetune
+    from determined_clone_tpu_torch.exec.trial import ClusterInfo
+
+    class PreemptAt(core.LocalMetricsBackend):
+        def __init__(self):
+            super().__init__()
+            self.ctx, self.times = None, {}
+
+        def report(self, group, steps_completed, metrics):
+            super().report(group, steps_completed, metrics)
+            if group != "training":
+                return
+            self.times[steps_completed] = time.monotonic()
+            if steps_completed == preempt_at:
+                open(flag, "w").close()
+                deadline = time.monotonic() + 30.0
+                while not self.ctx.preempt.should_preempt():
+                    if time.monotonic() > deadline:
+                        raise AssertionError("the preemption watcher "
+                                             "never saw the flag")
+                    time.sleep(0.05)
+
+    raw = _read_yaml(os.path.join("examples", "bert_finetune",
+                                  "const.yaml"))
+    raw["hyperparameters"] = hparams
+    raw["searcher"]["max_length"] = {"batches": BERT_BATCHES}
+    cfg = ExperimentConfig.from_dict(raw)
+    flag = os.path.join(storage, "preempt-flag")
+    backend = PreemptAt()
+    source = core.FilePreemptionSource(flag) if preempt_at else None
+    info = ClusterInfo(
+        master_host="", master_port=0, allocation_id="chip-smoke",
+        trial_id=1, experiment_id=0, rank=0, world_size=1, slots=1,
+        n_slices=1, hparams=hparams, target_units=BERT_BATCHES,
+        latest_checkpoint=latest, experiment_config=raw)
+    with core.init(config=cfg, storage_path=storage, trial_id=1,
+                   metrics_backend=backend,
+                   preemption_source=source) as ctx:
+        backend.ctx = ctx
+        t0 = time.monotonic()
+        result = bert_finetune.main(ctx, info, device=device)
+        wall = time.monotonic() - t0
+    ckpt = core.LocalCheckpointRegistry(
+        os.path.join(storage, "checkpoints.jsonl")).list()[-1]
+    return {"result": result, "wall_s": wall, "times": backend.times,
+            "checkpoint": ckpt["storage_id"],
+            "training": [(r["steps_completed"], r["metrics"])
+                         for r in backend.records
+                         if r["group"] == "training"],
+            "validation": [(r["steps_completed"], r["metrics"])
+                           for r in backend.records
+                           if r["group"] == "validation"]}
+
+
+def family_bert(storage, device="cuda") -> dict:
+    """BASELINE #4 at bert-base widths: ``main`` preempted at 30 by a
+    flag file, then resumed from its checkpoint to 60; the checkpoint's
+    arrays; a bf16 against an fp32 step."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from determined_clone_tpu_torch.core._serialization import (
+        tree_paths_and_leaves,
+    )
+    from determined_clone_tpu_torch.examples import bert_finetune
+    from determined_clone_tpu_torch.models import bert
+    from determined_clone_tpu_torch.training import optim
+
+    hp = {**_read_yaml(os.path.join("examples", "bert_finetune",
+                                    "const.yaml"))["hyperparameters"],
+          **BERT_BASE}
+    leg1 = bert_leg(storage, hp, None, preempt_at=BERT_PREEMPT_AT,
+                    device=device)
+    leg2 = bert_leg(storage, hp, leg1["checkpoint"], device=device)
+    with open(os.path.join(storage, leg2["checkpoint"], "state.pkl"),
+              "rb") as f:
+        saved = pickle.load(f)
+    cfg = bert_finetune.config_from_hparams(hp, device)
+    ref = bert.init(torch.Generator(device=device).manual_seed(0), cfg,
+                    device)
+    got = tree_paths_and_leaves(saved)
+    leg2["checkpoint_tree_ok"] = (
+        [(k, tuple(v.shape)) for k, v in got]
+        == [(k, tuple(v.shape)) for k, v in tree_paths_and_leaves(ref)]
+        and all(type(v) is np.ndarray and v.dtype == np.float32
+                for _, v in got))
+    del ref, saved
+    t = leg2["times"]
+    batch = hp["global_batch_size"]
+    first, last = min(t), max(t)
+    leg2["ms_per_step"] = (t[last] - t[first]) / (last - first) * 1e3
+    tokens, labels = bert_finetune._synthetic_reviews(
+        batch, cfg.vocab_size, hp["seq_len"], seed=3)
+    dev_batch = (torch.from_numpy(tokens).to(device),
+                 torch.from_numpy(labels).to(device))
+    d = dtype_steps(bert.init, cfg, bert.classify_loss,
+                    lambda: optim.adamw(float(hp["lr"]), weight_decay=0.01),
+                    dev_batch, seed=0, device=device)
+    for name, leg in (("leg 1", leg1), ("leg 2", leg2)):
+        train = [(s, round(m["loss"], 4)) for s, m in leg["training"]]
+        val = [(s, round(m["accuracy"], 4)) for s, m in leg["validation"]]
+        log(f"[families] bert-base {name}: {leg['result']}; training loss "
+            f"{train}; validation accuracy {val}; wall {leg['wall_s']:.2f} s")
+    log(f"[families] bert-base: {leg2['ms_per_step']:.2f} ms/step "
+        f"({batch / leg2['ms_per_step'] * 1e3:.2f} samples/s) over batches "
+        f"{first}-{last}; one step from the same weights, loss bf16 "
+        f"{d['bf16']:.6f} vs fp32 {d['fp32']:.6f} ({d['rel']:.2e} apart)")
+    return {"leg1": leg1, "leg2": leg2, "dtype_steps": d}
+
+
+def family_vision(storage, device="cuda") -> dict:
+    """ViT-S/16 on the ResNet example's synthetic images, and the
+    detector at ``DetectorConfig()`` on ``synthetic_detection_batches``,
+    each a subclass of the hub's trial that supplies the data."""
+    import numpy as np
+
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.examples.resnet50 import (
+        _synthetic_images,
+    )
+    from determined_clone_tpu_torch.model_hub import (
+        SingleStageDetectionTrial,
+        ViTClassificationTrial,
+        synthetic_detection_batches,
+    )
+
+    class SyntheticViT(ViTClassificationTrial):
+        def training_data(self):
+            bs = self.global_batch_size
+            x, y = _synthetic_images(int(self.context.get_hparam("n_train")),
+                                     self._cfg.image_size,
+                                     self._cfg.n_classes)
+            i = 0
+            while True:
+                sel = np.arange(i, i + bs) % len(x)
+                yield {"image": x[sel], "label": y[sel]}
+                i += bs
+
+    class SyntheticDetection(SingleStageDetectionTrial):
+        def training_data(self):
+            return synthetic_detection_batches(
+                self._cfg, batch_size=self.global_batch_size,
+                n_batches=VISION_BATCHES)
+
+    out = {}
+    for name, cls, hp in (("vit_s16", SyntheticViT, VIT_S16),
+                          ("detector", SyntheticDetection,
+                           {"global_batch_size": 32})):
+        cfg = ExperimentConfig.from_dict({
+            "searcher": {"name": "single", "metric": "loss",
+                         "max_length": {"batches": VISION_BATCHES}},
+            "scheduling_unit": 5, "hyperparameters": hp})
+        run = fit_family(cls, cfg, hp, os.path.join(storage, name), device)
+        log(_rate_line(name, run, hp["global_batch_size"]))
+        out[name] = run
+    return out
+
+
+def phase_families() -> dict:
+    """Phase 8: the families at full width, with the flash kernel's
+    launch count set to 0 before and read after (they attend through
+    plain ``mha``, as in the JAX package)."""
+    import math
+    import shutil
+    import tempfile
+
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+
+    storage = tempfile.mkdtemp(prefix="chip-smoke-families-")
+    lines: list = []
+    t0 = time.monotonic()
+    flash_attention.launches = 0
+    try:
+        mnist = family_mnist(os.path.join(storage, "mnist"))
+        resnet = family_resnet(os.path.join(storage, "resnet50"), lines)
+        bert = family_bert(os.path.join(storage, "bert"))
+        vision = family_vision(os.path.join(storage, "vision"))
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    launches = flash_attention.launches
+    wall = time.monotonic() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_profile.txt"), "a") as f:
+        f.write("\n" + "\n".join(lines))
+
+    def finite(values):
+        return bool(values) and all(math.isfinite(v) for v in values)
+
+    b1, b2 = bert["leg1"], bert["leg2"]
+    res_losses = _losses(resnet) + [resnet["first_loss"]]
+    checks = {
+        "mnist: 400 batches trained": (
+            mnist["result"]["batches_trained"] == 400),
+        f"mnist: best validation accuracy > {MNIST_GATE}": (
+            mnist["best_accuracy"] > MNIST_GATE),
+        f"resnet50: {RESNET_TRAIN_BATCHES} batches trained": (
+            resnet["result"]["batches_trained"] == RESNET_TRAIN_BATCHES),
+        "resnet50: every loss finite": finite(res_losses),
+        "resnet50: first loss within 1.0 of the initial logits' "
+        "chance-level loss": (
+            abs(resnet["first_loss"] - resnet["chance_loss"]) <= 1.0),
+        f"resnet50: bf16 and fp32 step losses within {BF16_STEP_REL}": (
+            resnet["dtype_steps"]["rel"] <= BF16_STEP_REL),
+        f"bert: leg 1 preempted at {BERT_PREEMPT_AT}": b1["result"] == {
+            "state": "preempted", "batches": BERT_PREEMPT_AT},
+        "bert: leg 2 reports at 40, 50, 60 and completes": (
+            [s for s, _ in b2["training"]] == [40, 50, 60]
+            and b2["result"] == {"state": "completed",
+                                 "batches": BERT_BATCHES}),
+        "bert: checkpoint is numpy fp32 under bert.init's tree": (
+            b2["checkpoint_tree_ok"]),
+        "bert: every loss finite": finite(
+            [m["loss"] for leg in (b1, b2) for _, m in leg["training"]]),
+        f"bert: bf16 and fp32 step losses within {BF16_STEP_REL}": (
+            bert["dtype_steps"]["rel"] <= BF16_STEP_REL),
+        "vit_s16 and detector: every loss finite": all(
+            finite(_losses(r)) for r in vision.values()),
+        "no flash launch in phase 8": launches == 0,
+    }
+    for name, ok in checks.items():
+        log(f"[families] check {'ok' if ok else 'FAILED'}: {name}")
+    log(f"[families] phase 8 wall {wall:.1f} s; flash launches {launches}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 8 checks failed: {failed}")
+    keep = ("result", "wall_s", "training", "validation")
+    return {"mnist": {k: mnist[k] for k in keep + ("best_accuracy",)},
+            "resnet50": {k: resnet[k] for k in keep + (
+                "first_loss", "chance_loss", "peak_memory_bytes",
+                "bare_step_ms",
+                "profile", "dtype_steps")},
+            "bert": {"leg1": {k: b1[k] for k in keep},
+                     "leg2": {k: b2[k] for k in keep + ("ms_per_step",)},
+                     "dtype_steps": bert["dtype_steps"]},
+            "vision": {n: {k: r[k] for k in keep}
+                       for n, r in vision.items()},
+            "flash_launches": launches, "wall_s": wall, "checks": checks}
+
+
 def kernel_entry(case: dict) -> dict:
     return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "call_ms": case["call_ms"], "plain_ms": case["plain_ms"],
@@ -1146,6 +1657,7 @@ def main(argv) -> int:
     report["attention_grad"] = phase_attention_grad()
     report["train"] = phase_train()
     report["trial"] = phase_trial(report["train"]["samples_per_s"])
+    report["families"] = phase_families()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

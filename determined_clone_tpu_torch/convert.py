@@ -9,7 +9,9 @@ same stacked ``[L, ...]`` layout and the same leaf names.
 The flat keys of a single-host checkpoint shard (``shard-0.npz``, where
 ``core/_serialization.py`` joins the tree path with ".") are accepted
 too, so ``params_from_numpy(dict(np.load(path)), device)`` loads an
-unsharded checkpoint's arrays.
+unsharded checkpoint's arrays. Lists and tuples are walked as the
+serialization walks them (the detector's ``backbone`` is a list): a
+node whose flat keys are ``0 .. n-1`` becomes a list.
 """
 from __future__ import annotations
 
@@ -41,19 +43,31 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
         for p in parents:
             node = node.setdefault(p, {})
         node[name] = leaf
-    return tree
+    return _listify(tree)
+
+
+def _listify(node: Any) -> Any:
+    """Nested dicts with the dicts keyed ``"0" .. "n-1"`` as lists."""
+    if not isinstance(node, dict):
+        return node
+    kids = {k: _listify(v) for k, v in node.items()}
+    if kids and set(kids) == {str(i) for i in range(len(kids))}:
+        return [kids[str(i)] for i in range(len(kids))]
+    return kids
 
 
 def params_from_numpy(tree: Mapping[str, Any], device: DeviceLike = "cuda",
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Nested dicts of numpy arrays (or flat checkpoint keys
-    ``"blocks.attn_qkv.kernel"``) → the same dicts of tensors on
-    ``device``, cast to ``dtype`` when given."""
+    """Nested dicts, lists and tuples of numpy arrays (or flat checkpoint
+    keys ``"blocks.attn_qkv.kernel"``, ``"backbone.0.kernel"``) → the same
+    tree of tensors on ``device``, cast to ``dtype`` when given."""
     dev = resolve_device(device)
 
     def conv(node: Any) -> Any:
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
         return _to_tensor(node, dev, dtype)
 
     if any("." in k for k in tree):

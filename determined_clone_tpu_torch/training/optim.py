@@ -43,16 +43,21 @@ ScalarOrSchedule = Union[float, Callable[[int], float]]
 
 
 def leaves(tree: Any) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+    """The tensors of nested dicts and lists, in insertion order."""
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in leaves(v)]
     return [tree]
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
-    """The same nested dict with ``fn`` applied to every tensor."""
+    """The same nested dicts and lists with ``fn`` applied to every
+    tensor."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 

@@ -93,7 +93,11 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, *,
     def step_fn(state: TrainState, batch: Any) -> Tuple[TrainState, Metrics]:
         out = loss_fn(state.params, batch, fold_seed(state.seed, state.step))
         loss, metrics = out if isinstance(out, tuple) else (out, {})
-        grads = torch.autograd.grad(loss, leaves(state.params))
+        params = leaves(state.params)
+        # a parameter the loss does not use (BERT's MLM bias under the
+        # classification loss) gets a zero gradient, as under jax.grad
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
         # copied before the update: a metric may alias a parameter (a
         # metric of ``params["w"]``), which the update overwrites in place,
         # and the JAX step reports the value before the update

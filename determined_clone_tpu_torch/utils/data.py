@@ -21,7 +21,10 @@ read a batch the copy has not finished writing, silently.
 """
 from __future__ import annotations
 
+import gzip
+import os
 import queue
+import struct
 import threading
 import time
 from typing import Any, Callable, Iterable, List, Optional, Tuple
@@ -49,17 +52,49 @@ def synthetic_mnist(n: int = 8192, seed: int = 0, image: bool = False
     return x, labels
 
 
+def load_mnist_idx(data_dir: str, split: str = "train", image: bool = False
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Load MNIST from IDX files (raw or .gz) if present."""
+    prefix = "train" if split == "train" else "t10k"
+    imgs = _read_idx(os.path.join(data_dir, f"{prefix}-images-idx3-ubyte"))
+    labels = _read_idx(os.path.join(data_dir, f"{prefix}-labels-idx1-ubyte"))
+    x = imgs.astype(np.float32) / 255.0
+    y = labels.astype(np.int32)
+    if image:
+        x = x.reshape(-1, 28, 28, 1)
+    else:
+        x = x.reshape(-1, 784)
+    return x, y
+
+
+def _read_idx(path: str) -> np.ndarray:
+    opener = open
+    if not os.path.exists(path) and os.path.exists(path + ".gz"):
+        path, opener = path + ".gz", gzip.open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        shape = struct.unpack(f">{ndim}I", f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(shape)
+
+
+# scikit-learn's bundled copy of the UCI optdigits scans (BSD-3-Clause;
+# README.md): one row per scan, 64 pixel values 0-16 then the label
+_DIGITS_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "digits.csv.gz")
+
+
 def digits_dataset(split: str = "train", image: bool = False
                    ) -> Tuple[np.ndarray, np.ndarray]:
-    """Real handwritten digits without a download: scikit-learn's bundled
-    digits set (1,797 8×8 scans), upsampled to the 28×28 MNIST geometry
-    (×4 nearest-neighbour, centre crop), with a held-out test split.
-    Needs scikit-learn."""
-    from sklearn.datasets import load_digits
-
-    d = load_digits()
-    x = d.images.astype(np.float32) / 16.0          # [N, 8, 8] in [0, 1]
-    y = d.target.astype(np.int32)
+    """Real handwritten digits without a download: the 1,797 8×8 scans of
+    scikit-learn's digits set, read from the copy kept beside this module
+    as ``load_digits`` reads it, upsampled to the 28×28 MNIST geometry
+    (×4 nearest-neighbour, centre crop), with a held-out test split —
+    the same arrays as the JAX package's ``digits_dataset``."""
+    with gzip.open(_DIGITS_CSV, "rt", encoding="utf-8") as f:
+        data = np.loadtxt(f, delimiter=",")
+    x = data[:, :-1].reshape(-1, 8, 8).astype(np.float32) / 16.0
+    y = data[:, -1].astype(int).astype(np.int32)
     x = np.repeat(np.repeat(x, 4, axis=1), 4, axis=2)[:, 2:30, 2:30]
     idx = np.random.RandomState(_PROTO_SEED).permutation(len(x))
     n_train = int(0.8 * len(x))
@@ -70,6 +105,23 @@ def digits_dataset(split: str = "train", image: bool = False
     else:
         x = x.reshape(len(x), -1)
     return np.ascontiguousarray(x), np.ascontiguousarray(y)
+
+
+def mnist_dataset(data_dir: Optional[str] = None, split: str = "train",
+                  image: bool = False, synthetic_n: int = 8192,
+                  seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Real MNIST if ``data_dir`` has IDX files, else the synthetic
+    stand-in (as the JAX package's ``mnist_dataset``)."""
+    if data_dir:
+        try:
+            return load_mnist_idx(data_dir, split, image)
+        except FileNotFoundError:
+            pass
+    return synthetic_mnist(
+        synthetic_n if split == "train" else max(1024, synthetic_n // 8),
+        seed=seed if split == "train" else seed + 1,
+        image=image,
+    )
 
 
 class BatchIterator:
