@@ -83,17 +83,54 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    losses, a bf16 and an fp32 step within ``BF16_STEP_REL``; (d)
    ViT-S/16 (the hub's ``ViTClassificationTrial``) and the detector at
    ``DetectorConfig()``, 10 batches each, every loss finite. Prints each
-   trial's samples/s and ms/step per report.
+   trial's samples/s and ms/step per report;
+9. the serving features at full width: ``GPTConfig()`` (bf16) with
+   random weights from a seed (phase 4's), engines built by
+   ``InferenceEngine.from_serving_config`` from ``ServingConfig(
+   max_batch=8, max_prefill_len=128, kv_block_size=16)``, every greedy
+   token held to the phase-4 rule (``check_greedy``; in bf16 each near
+   tie also within ``BF16_TIE_GAP`` of the best logit in fp32). A fresh
+   init's greedy decode mostly repeats its last token, which a wrong KV
+   context barely moves, so (a), (b) and (f) run again on
+   ``branch_scaled`` weights in fp32, token for token: (a) the prefix
+   cache — 8 requests sharing a 96-token system prompt with their own
+   8–40-token tails, the first alone, then the rest, then all 8 again:
+   the hit and miss counts per request, a fork of every repeated
+   prompt's last block, equal tokens on the repeat, held blocks equal to
+   the cache's and 0 after a flush; and the same requests in bf16 on the
+   scaled weights, every step off the greedy loop a near tie in bf16 and
+   in fp32; (b) chunked prefill on a warmed engine — two 900-token
+   prompts in 128-token chunks while 6 short requests decode: 8 chunks
+   of each prompt, at most one chunk call between two decode steps, each
+   gap within the longest chunk call plus the longest decode step plus
+   ``GAP_MARGIN_MS``, and ``run_static`` on the same requests; (c)
+   speculative decoding with k=4, in fp32 and bf16, with the identity
+   testbed (``extend_with_identity_layers`` by 12 as the target, the
+   model as the draft: acceptance exactly 1.0 in fp32, at least
+   ``SPEC_MIN_ACCEPT_BF16`` in bf16) and a disagreeing draft
+   (``slice_prefix_layers`` to 2; in fp32 also on ``branch_scaled``
+   weights, where it disagrees, every token equal); (d) the lifecycle —
+   an abort mid-decode, a past deadline, ``hot_swap`` to a second seed's
+   weights, ``liveness``, ``fail_inflight`` raising ``ReplicaFailed``,
+   every block back; (e) ``ServingHTTPServer`` on an ephemeral port:
+   three ``generate_over_http`` calls, ``/metrics`` parsed against
+   ``stats()``, 429 from a full queue; (f) warmup with prefix cache,
+   chunking and speculation on: ``warmup() == program_budget()`` CUDA
+   graphs, capture seconds and memory, then the phase-4 burst cold
+   (eager) and warm (graph replays only, counted; the cold tokens), each
+   with tokens/s, p50/p99 and the device's busy share, and ``hot_swap``
+   after warmup. No flash launch. Prints the phase's wall time.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
 that of phase 3, the uncached forward (the engine's paged forward
 attends with plain ``mha``, as in the JAX package); ``train_launches``
 is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
-two legs; phase 8 launches none. The last three lines are the kernels' JSON line, the card's
-name and power limit, and the result. Details go to
-``smoke_out/chip_smoke.json``. Exits non-zero, printing no result, when
-CUDA is unavailable.
+two legs; phases 8 and 9 launch none (``serving_launches``). The last
+three lines are the kernels' JSON line, the card's name and power limit,
+and the result; the line before them gives the whole script's wall
+time. Details go to ``smoke_out/chip_smoke.json``. Exits non-zero,
+printing no result, when CUDA is unavailable.
 """
 from __future__ import annotations
 
@@ -370,47 +407,60 @@ def serve(params, cfg, prompts, new):
 
 
 def check_greedy(params, cfg, prompts, results, tie_tol=0.0,
-                 max_ties=0) -> dict:
+                 max_ties=0, witness=None) -> dict:
     """The reference's pin, step by step: at every generated position the
     full uncached forward (plain attention) over the prompt and the
     engine's tokens so far must pick the engine's token. Where every
     step agrees this IS the greedy loop over ``apply``. With ``max_ties``
-    above 0, up to that many steps may pick another token at a near tie —
-    the engine's token within ``tie_tol`` of the best logit — since the
-    paged and uncached forwards run different matrix shapes, whose bf16
-    sums the card orders differently."""
+    above 0 (None: no cap), up to that many steps may pick another token
+    at a near tie — the engine's token within ``tie_tol`` of the best
+    logit — since the paged and uncached forwards run different matrix
+    shapes, whose bf16 sums the card orders differently. ``witness``
+    (a config, fp32) is a second judge of each such step: its uncached
+    forward over the same tokens must also put the engine's token within
+    ``tie_tol`` of its best, or the step is a fault, not a tie."""
     import torch
 
     from determined_clone_tpu_torch.models import gpt
 
     mha_cfg = dataclasses.replace(cfg, attention_impl="mha")
-    exact = ties = 0
-    worst = 0.0
+    exact = 0
+    ties = []
     with torch.no_grad():
         for p, r in zip(prompts, results):
             toks = list(p)
             for t in r.tokens:
-                logits = gpt.apply(params, mha_cfg,
-                                   torch.tensor([toks], device="cuda"))[0, -1]
+                x = torch.tensor([toks], device="cuda")
+                logits = gpt.apply(params, mha_cfg, x)[0, -1]
                 best = int(logits.argmax())
                 if best == t:
                     exact += 1
-                else:
-                    margin = float(logits[best] - logits[t])
-                    if not margin <= tie_tol:
+                    toks.append(t)
+                    continue
+                where = (f"request {r.request_id} step {len(toks) - len(p)}"
+                         f": engine token {t}, greedy {best}")
+                tie = {"gap": float(logits[best] - logits[t])}
+                if not tie["gap"] <= tie_tol:
+                    raise AssertionError(f"{where}, logit gap {tie['gap']} > "
+                                         f"{tie_tol}")
+                if witness is not None:
+                    w = gpt.apply(params, dataclasses.replace(
+                        witness, attention_impl="mha"), x)[0, -1]
+                    tie["witness_gap"] = float(w.max() - w[t])
+                    if not tie["witness_gap"] <= tie_tol:
                         raise AssertionError(
-                            f"request {r.request_id} step {len(toks) - len(p)}"
-                            f": engine token {t}, greedy {best}, logit gap "
-                            f"{margin} > {tie_tol}")
-                    ties += 1
-                    worst = max(worst, margin)
-                    if ties > max_ties:
-                        raise AssertionError(
-                            f"{ties} steps differ from the greedy loop at "
-                            f"near ties, more than {max_ties}")
+                            f"{where}: the witness puts the engine's token "
+                            f"{tie['witness_gap']} below its best, more "
+                            f"than {tie_tol}")
+                ties.append(tie)
+                if max_ties is not None and len(ties) > max_ties:
+                    raise AssertionError(
+                        f"{len(ties)} steps differ from the greedy loop at "
+                        f"near ties, more than {max_ties}")
                 toks.append(t)
-    return {"exact": exact, "near_ties": ties, "worst_tie_gap": worst,
-            "tie_tol": tie_tol}
+    return {"exact": exact, "near_ties": len(ties),
+            "worst_tie_gap": max([x["gap"] for x in ties], default=0.0),
+            "ties": ties, "tie_tol": tie_tol}
 
 
 def greedy_loop(params, cfg, prompt, n):
@@ -1619,6 +1669,656 @@ def phase_families() -> dict:
             "flash_launches": launches, "wall_s": wall, "checks": checks}
 
 
+# phase 9: the serving features at full width
+SERVE = {"max_batch": 8, "max_prefill_len": 128, "kv_block_size": 16,
+         "system": 96, "tails": (8, 40), "new": 32, "long": 900,
+         "chunk": 128, "short": 16, "short_new": 48,
+         "spec_lengths": (16, 40, 90, 120),
+         "burst": (16, 40, 64, 90, 120, 150, 180, 200), "spec_k": 4,
+         "identity_extra": 12, "draft_layers": 2, "abort_new": 400}
+SPEC_MIN_ACCEPT_BF16 = 0.95  # identity draft in bf16: near ties may flip
+# a short row's decode gap during a chunked prefill: one chunk call and
+# one decode step, plus the scheduler's host work between them
+GAP_MARGIN_MS = 3.0
+
+
+def branch_scaled(params):
+    """A copy of ``params`` whose greedy tokens depend on the context: each
+    block's output projections (``attn_out``, ``mlp_down``) scaled by 10
+    and its query and key projections by 2 (attention scores by 4). A
+    fresh init's greedy decode mostly repeats the last token
+    (``echo_share``): its attention is nearly uniform and its residual
+    branches small, so a wrong KV context barely moves the argmax. The
+    logits keep their scale (the final layernorm and the tied embedding
+    are untouched)."""
+    blocks = dict(params["blocks"])
+    for name in ("attn_out", "mlp_down"):
+        blocks[name] = dict(blocks[name],
+                            kernel=blocks[name]["kernel"] * 10.0)
+    qkv = blocks["attn_qkv"]["kernel"].clone()
+    qkv[..., :2 * qkv.shape[-1] // 3] *= 2.0
+    blocks["attn_qkv"] = dict(blocks["attn_qkv"], kernel=qkv)
+    return dict(params, blocks=blocks)
+
+
+def serving_config(**kw):
+    from determined_clone_tpu_torch.config import ServingConfig
+
+    cfg = ServingConfig(max_batch=SERVE["max_batch"],
+                        max_prefill_len=SERVE["max_prefill_len"],
+                        kv_block_size=SERVE["kv_block_size"], **kw)
+    cfg.validate()
+    return cfg
+
+
+def spec_block(cfg, k, layers):
+    """A speculative: block whose draft has ``cfg``'s widths."""
+    from determined_clone_tpu_torch.config import SpeculativeConfig
+
+    return SpeculativeConfig(enabled=True, k=k, draft_layers=layers,
+                             draft_d_model=cfg.d_model,
+                             draft_n_heads=cfg.n_heads, draft_d_ff=cfg.d_ff)
+
+
+def serving_engine(params, cfg, scfg, **kw):
+    from determined_clone_tpu_torch.serving import InferenceEngine
+
+    return InferenceEngine.from_serving_config(params, cfg, scfg,
+                                               device="cuda", **kw)
+
+
+def traced():
+    """(telemetry for an engine, its tracer)."""
+    import types
+
+    from determined_clone_tpu_torch.telemetry.spans import Tracer
+
+    tracer = Tracer()
+    return types.SimpleNamespace(registry=None, tracer=tracer), tracer
+
+
+def prompts_of(lengths, vocab, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).tolist() for n in lengths]
+
+
+def echo_share(prompts, results) -> float:
+    """Share of generated tokens equal to the token before them: near 1
+    would mean a model that only repeats, and checks that prove little."""
+    same = total = 0
+    for p, r in zip(prompts, results):
+        prev = p[-1]
+        for t in r.tokens:
+            same += t == prev
+            total += 1
+            prev = t
+    return same / max(total, 1)
+
+
+def burst(eng, prompts, new, timeout=900):
+    """All prompts submitted at once; (results, wall s, p50 s, p99 s)."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    hs = [eng.submit(p, new, request_id=str(i)) for i, p in enumerate(prompts)]
+    results = [h.result(timeout=timeout) for h in hs]
+    wall = time.monotonic() - t0
+    lat = sorted(r.total_s for r in results)
+    return (results, wall, float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)))
+
+
+def pinned(pin, results) -> bool:
+    """check_greedy raised on any step outside the rule; this holds when
+    it went through every generated token."""
+    return pin["exact"] + pin["near_ties"] == sum(len(r.tokens)
+                                                   for r in results)
+
+
+def pin_rule(cfg):
+    """The phase-4 rule: token for token in fp32; in bf16 at most
+    ``BF16_MAX_TIES`` near ties, each one also within ``BF16_TIE_GAP`` of
+    the best logit in fp32 (``check_greedy``'s witness)."""
+    import torch
+
+    if cfg.compute_dtype == torch.float32:
+        return {"tie_tol": 0.0, "max_ties": 0}
+    return {"tie_tol": BF16_TIE_GAP, "max_ties": BF16_MAX_TIES,
+            "witness": dataclasses.replace(cfg, compute_dtype=torch.float32)}
+
+
+def lane_name(cfg, scaled) -> str:
+    import torch
+
+    dtype = "fp32" if cfg.compute_dtype == torch.float32 else "bf16"
+    return f"{dtype}, {'scaled' if scaled else 'fresh'} weights"
+
+
+def prefix_traffic(params, cfg):
+    """(a)'s requests: 8 prompts sharing a system prompt, each with its
+    own tail; the first alone, then the other 7 (they alias its full
+    blocks); then all 8 again (every prompt block hits, the last one is
+    forked). Returns what the checks read."""
+    import numpy as np
+
+    system = prompts_of([SERVE["system"]], cfg.vocab_size, 90)[0]
+    lengths = np.linspace(*SERVE["tails"], 8).astype(int).tolist()
+    prompts = [system + t for t in prompts_of(lengths, cfg.vocab_size, 91)]
+    telemetry, tracer = traced()
+    scfg = serving_config(prefix_cache=True,
+                          chunk_prefill_len=SERVE["chunk"])
+    new = SERVE["new"]
+    with serving_engine(params, cfg, scfg, telemetry=telemetry) as eng:
+        wave1 = [eng.generate(prompts[0], new, timeout=900)]
+        wave1 += burst(eng, prompts[1:], new)[0]
+        wave2 = burst(eng, prompts, new)[0]
+        eng.wait_idle()
+        stats = eng.stats()
+        outstanding = eng.kv_outstanding()
+        eng.assert_kv_balanced(stats.prefix_cached_entries)
+        flushed = eng.flush_prefix_cache()
+        eng.assert_kv_balanced(0)
+    forks = [e for e in tracer.events() if e["name"] == "request_cow_fork"]
+    return {"prompts": prompts, "lengths": lengths, "wave1": wave1,
+            "wave2": wave2, "stats": stats, "outstanding": outstanding,
+            "flushed": flushed, "forks": len(forks)}
+
+
+def serving_prefix(params, cfg, scaled) -> dict:
+    """(a) the prefix cache: hit and miss counts per request, a fork of
+    every repeated prompt's last block, the repeat's tokens, the greedy
+    pin, and the blocks the cache holds."""
+    lane = lane_name(cfg, scaled)
+    t = prefix_traffic(params, cfg)
+    prompts, wave1, wave2, stats = (t["prompts"], t["wave1"], t["wave2"],
+                                    t["stats"])
+    bs = SERVE["kv_block_size"]
+    need = [-(-len(p) // bs) for p in prompts]
+    shared = SERVE["system"] // bs
+    pin = check_greedy(params, cfg, prompts, wave1, **pin_rule(cfg))
+    everyone = wave1 + wave2
+    checks = {
+        f"prefix ({lane}): the first request misses every prompt block": (
+            wave1[0].prefix_hit_blocks, wave1[0].prefix_miss_blocks)
+        == (0, need[0]),
+        f"prefix ({lane}): requests 2-8 hit the {shared} shared blocks and "
+        f"miss their tails": all(
+            (r.prefix_hit_blocks, r.prefix_miss_blocks) == (shared, n - shared)
+            for r, n in zip(wave1[1:], need[1:])),
+        f"prefix ({lane}): the repeat hits every prompt block and forks the "
+        f"last": all((r.prefix_hit_blocks, r.prefix_miss_blocks) == (n, 0)
+                     for r, n in zip(wave2, need))
+        and t["forks"] == len(prompts),
+        f"prefix ({lane}): hit and miss counters sum the requests'": (
+            stats.prefix_hit_blocks == sum(r.prefix_hit_blocks
+                                           for r in everyone)
+            and stats.prefix_miss_blocks == sum(r.prefix_miss_blocks
+                                                for r in everyone)),
+        f"prefix ({lane}): the repeat's tokens equal the first wave's": [
+            r.tokens for r in wave2] == [r.tokens for r in wave1],
+        f"prefix ({lane}): tokens follow the greedy loop (phase-4 rule)":
+        pinned(pin, wave1),
+        f"prefix ({lane}): outstanding blocks == resident cache blocks, "
+        f"then 0": t["outstanding"] == stats.prefix_cached_entries
+        == t["flushed"] > 0,
+    }
+    echo = echo_share(prompts, wave1)
+    log(f"[serving] (a) prefix, {lane}: {len(prompts)} prompts of "
+        f"{SERVE['system']} shared + {t['lengths'][0]}-{t['lengths'][-1]} "
+        f"own tokens: hits {[r.prefix_hit_blocks for r in wave1]} then "
+        f"{[r.prefix_hit_blocks for r in wave2]} blocks, misses "
+        f"{[r.prefix_miss_blocks for r in wave1]}; {t['forks']} forks; "
+        f"{stats.prefix_cached_entries} cached blocks flushed; greedy "
+        f"{pin['exact']} exact, {pin['near_ties']} near ties {pin['ties']}; "
+        f"echo share {echo:.3f}")
+    return {"checks": checks, "hits": [r.prefix_hit_blocks for r in everyone],
+            "misses": [r.prefix_miss_blocks for r in everyone],
+            "forks": t["forks"], "cached_blocks": stats.prefix_cached_entries,
+            "pin": pin, "echo_share": echo}
+
+
+def serving_prefix_witness(params, cfg) -> dict:
+    """(a)'s traffic in bf16 on the scaled weights, both waves against
+    the greedy loop: how many steps pick another token than the uncached
+    bf16 forward, and whether the fp32 witness calls each a near tie
+    too. No cap on their number: the phase-4 cap was set on the fresh
+    weights, whose decode mostly repeats; the fp32 lane on the same
+    weights holds these requests token for token."""
+    t = prefix_traffic(params, cfg)
+    pin = check_greedy(params, cfg, t["prompts"] * 2, t["wave1"] + t["wave2"],
+                       **dict(pin_rule(cfg), max_ties=None))
+    steps = 2 * len(t["prompts"]) * SERVE["new"]
+    log(f"[serving] (a) prefix, {lane_name(cfg, True)}: {pin['exact']}/"
+        f"{steps} steps equal the bf16 greedy loop, {pin['near_ties']} near "
+        f"ties (gap, fp32 witness's gap): "
+        f"{[(x['gap'], x['witness_gap']) for x in pin['ties']]}")
+    return {"checks": {
+        "prefix (bf16, scaled weights): every step off the greedy loop is a "
+        "near tie in bf16 and in fp32": pinned(pin, t["wave1"] + t["wave2"])},
+        "pin": pin, "steps": steps}
+
+
+def serving_chunked(params, cfg, scaled) -> dict:
+    """(b) on a warmed engine, two long prompts prefilled in chunks while
+    6 short requests decode: between two of the short rows' decode steps
+    during the long prefill runs one chunk call at most, and each gap is
+    no longer than the longest chunk call plus the longest decode step
+    plus ``GAP_MARGIN_MS``; then ``run_static`` on the same requests."""
+    lane = lane_name(cfg, scaled)
+    telemetry, tracer = traced()
+    shorts = prompts_of([SERVE["short"]] * 6, cfg.vocab_size, 92)
+    longs = prompts_of([SERVE["long"]] * 2, cfg.vocab_size, 93)
+    scfg = serving_config(chunk_prefill_len=SERVE["chunk"])
+    with serving_engine(params, cfg, scfg, telemetry=telemetry) as eng:
+        eng.warmup()  # graph replays: the gaps are not first calls' costs
+        hs = [eng.submit(p, SERVE["short_new"]) for p in shorts]
+        while sum(e["name"] == "serving_decode_step"
+                  for e in tracer.events()) < 3:
+            time.sleep(0.001)
+        hs += [eng.submit(p, SERVE["new"], request_id=f"long-{i}")
+               for i, p in enumerate(longs)]
+        results = [h.result(timeout=900) for h in hs]
+        eng.wait_idle()
+        static = eng.run_static([(p, SERVE["short_new"]) for p in shorts]
+                                + [(p, SERVE["new"]) for p in longs])
+        eng.assert_kv_balanced(0)
+    events = tracer.events()
+    chunks = {(e["args"]["request_id"], e["ts_us"]): e["dur_us"]
+              for e in events if e["name"] == "request_prefill_chunk"
+              and e["args"]["request_id"].startswith("long-")}
+    calls = {ts: d for (_, ts), d in chunks.items()}  # one per chunk call
+    lo = min(calls)
+    hi = max(ts + d for ts, d in calls.items())
+    steps = sorted((e["ts_us"], e["dur_us"]) for e in events
+                   if e["name"] == "serving_decode_step")
+    # the short rows' inter-token gaps: decode steps around a chunk call
+    gaps = [(a, b) for a, b in zip(steps, steps[1:])
+            if a[0] < hi and b[0] > lo]
+    gaps_ms = [(b[0] - a[0]) / 1e3 for a, b in gaps]
+    calls_in_gap = [sum(a[0] < ts < b[0] for ts in calls) for a, b in gaps]
+    bound_ms = (max(calls.values()) + max(d for _, d in steps)) / 1e3 \
+        + GAP_MARGIN_MS
+    whole_ms = sum(calls.values()) / 1e3
+    prompts = shorts + longs
+    pin = check_greedy(params, cfg, prompts, results, **pin_rule(cfg))
+    pin_static = check_greedy(params, cfg, prompts, static, **pin_rule(cfg))
+    same_static = sum(a.tokens == b.tokens for a, b in zip(results, static))
+    n_chunks = -(-SERVE["long"] // SERVE["chunk"])
+    checks = {
+        f"chunked ({lane}): every request generated its tokens": all(
+            r.finish_reason == "length" for r in results),
+        f"chunked ({lane}): {2 * n_chunks} chunks covered both "
+        f"{SERVE['long']}-token prompts": len(chunks) == 2 * n_chunks
+        and all(sum(r == f"long-{i}" for r, _ in chunks) == n_chunks
+                for i in range(2)),
+        f"chunked ({lane}): one chunk call at most between two decode "
+        f"steps, each gap within the longest chunk call + the longest "
+        f"decode step + {GAP_MARGIN_MS} ms": bool(gaps_ms)
+        and max(calls_in_gap) <= 1 and max(gaps_ms) <= bound_ms,
+        f"chunked ({lane}): tokens follow the greedy loop (phase-4 rule)":
+        pinned(pin, results),
+        f"chunked ({lane}): run_static's tokens follow it too": pinned(
+            pin_static, static),
+        # both follow the rule, so they can differ only after a near tie
+        f"chunked ({lane}): run_static's tokens equal the continuous "
+        f"engine's (bf16: but for near ties)": same_static == len(results)
+        or pin["near_ties"] + pin_static["near_ties"] > 0,
+    }
+    log(f"[serving] (b) chunked, {lane}: 2 x {SERVE['long']} tokens in "
+        f"{len(calls)} chunk calls of {SERVE['chunk']} ({whole_ms:.1f} ms) "
+        f"beside 6 decoding requests: their decode gaps meanwhile "
+        f"{', '.join(f'{g:.1f}' for g in gaps_ms)} ms (bound "
+        f"{bound_ms:.1f}), chunk calls per gap {calls_in_gap}; greedy "
+        f"{pin['exact']} exact, {pin['near_ties']} near ties; run_static "
+        f"equal on {same_static}/{len(results)} requests; echo share "
+        f"{echo_share(prompts, results):.3f}")
+    return {"checks": checks, "chunk_calls": len(calls),
+            "whole_prefill_ms": whole_ms, "decode_gaps_ms": gaps_ms,
+            "gap_bound_ms": bound_ms, "chunk_calls_per_gap": calls_in_gap,
+            "pin": pin, "pin_static": pin_static,
+            "static_equal_requests": same_static}
+
+
+def serving_speculative(params, cfg) -> dict:
+    """(c) k-token speculation with the identity testbed (target = the
+    model deepened by identity layers, draft = the model) and with a
+    disagreeing draft (its first layers), in fp32 and in bf16; and in
+    fp32 the disagreeing draft again on ``branch_scaled`` weights, where
+    it does disagree."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    k, layers = SERVE["spec_k"], SERVE["draft_layers"]
+    prompts = prompts_of(SERVE["spec_lengths"], cfg.vocab_size, 94)
+    out, checks = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        ext, ext_cfg = gpt.extend_with_identity_layers(
+            params, c, SERVE["identity_extra"])
+        lanes = {"identity": (ext, ext_cfg, params, c.n_layers, params),
+                 "disagreeing": (params, c, gpt.slice_prefix_layers(
+                     params, c, layers)[0], layers, params)}
+        if dtype == torch.float32:
+            scaled = branch_scaled(params)  # a draft that disagrees
+            lanes["disagreeing_scaled"] = (
+                scaled, c, gpt.slice_prefix_layers(scaled, c, layers)[0],
+                layers, scaled)
+        for lane, (tp, tc, dp, n_draft, ref) in lanes.items():
+            scfg = serving_config(speculative=spec_block(c, k, n_draft))
+            telemetry, tracer = traced()
+            with serving_engine(tp, tc, scfg, draft_params=dp,
+                                telemetry=telemetry) as eng:
+                results, wall, _, _ = burst(eng, prompts, SERVE["new"])
+                stats = eng.stats()
+            del eng
+            pin = check_greedy(ref, c, prompts, results, **pin_rule(c))
+            rate = stats.spec_acceptance_rate
+            # tokens one row emits per verify call, over every row's rounds
+            emitted = [e["args"]["emitted"] for e in tracer.events()
+                       if e["name"] == "request_spec_round"]
+            rounds = len(emitted)
+            per_verify = sum(emitted) / rounds
+            out[f"{lane}_{name}"] = {
+                "acceptance": rate, "tokens_per_verify": per_verify,
+                "row_rounds": rounds, "tokens_per_s":
+                stats.tokens_generated / wall, "pin": pin,
+                "echo_share": echo_share(prompts, results)}
+            log(f"[serving] (c) {lane} draft, {name}, k={k}: acceptance "
+                f"{rate:.4f}, {per_verify:.3f} tokens per row and verify "
+                f"({rounds} row-rounds), "
+                f"{stats.tokens_generated / wall:.1f} tokens/s; greedy "
+                f"{pin['exact']} exact, {pin['near_ties']} near ties; echo "
+                f"share {echo_share(prompts, results):.3f}")
+            checks[f"speculative ({lane}, {name}): tokens follow the "
+                   f"greedy loop (phase-4 rule)"] = pinned(pin, results)
+        del ext, lanes
+    checks["speculative: identity acceptance exactly 1.0 in fp32"] = (
+        out["identity_fp32"]["acceptance"] == 1.0)
+    checks[f"speculative: identity acceptance >= {SPEC_MIN_ACCEPT_BF16} in "
+           f"bf16"] = out["identity_bf16"]["acceptance"] >= \
+        SPEC_MIN_ACCEPT_BF16
+    return {"checks": checks, **out}
+
+
+def serving_lifecycle(params, params2, cfg) -> dict:
+    """(d) abort mid-decode, a deadline already past, hot_swap to other
+    weights, liveness, and condemnation with fail_inflight."""
+    from determined_clone_tpu_torch.serving import ReplicaFailed
+
+    prompts = prompts_of(SERVE["spec_lengths"][:3], cfg.vocab_size, 95)
+    many, new = SERVE["abort_new"], SERVE["new"]
+    with serving_engine(params, cfg, serving_config()) as eng:
+        h = eng.submit(prompts[0], many)
+        while not eng.stats().peak_active:
+            time.sleep(0.001)
+        time.sleep(0.2)
+        eng.abort(h)
+        aborted = h.result(timeout=600)
+        eng.wait_idle()
+        eng.assert_kv_balanced(0)
+        expired = eng.submit(prompts[1], 8,
+                             deadline_t=time.monotonic() - 1.0).result(600)
+        eng.assert_kv_balanced(0)
+        before = eng.generate(prompts[2], new, timeout=600)
+        eng.hot_swap(params2)
+        after = eng.generate(prompts[2], new, timeout=600)
+        # a handle resolves inside the scheduler's pass: wait for the
+        # pass to end before reading an idle engine's beat
+        eng.wait_idle()
+        live = eng.liveness()
+        hs = [eng.submit(p, many) for p in prompts]
+        while not eng.liveness()["pending"]:
+            time.sleep(0.001)
+        failed = eng.fail_inflight("chip smoke")
+        raised = 0
+        for x in hs:
+            try:
+                x.result(timeout=600)
+            except ReplicaFailed:
+                raised += 1
+        deadline = time.monotonic() + 60
+        while eng.liveness()["thread_alive"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        dead = not eng.liveness()["thread_alive"]
+        eng.assert_kv_balanced(0)
+    pin = check_greedy(params2, cfg, [prompts[2]], [after], **pin_rule(cfg))
+    checks = {
+        "lifecycle: an abort mid-decode resolves aborted, blocks back": (
+            aborted.finish_reason == "aborted"
+            and 0 < len(aborted.tokens) < many),
+        "lifecycle: a past deadline expires at admission": (
+            expired.finish_reason, expired.tokens) == ("expired", []),
+        "lifecycle: after hot_swap the tokens are the new weights' greedy "
+        "ones (phase-4 rule)": pinned(pin, [after]),
+        "lifecycle: liveness reports a fresh beat": (
+            live["thread_alive"] and not live["pending"]
+            and live["beat_age_s"] < 5.0),
+        "lifecycle: fail_inflight resolves in-flight handles with "
+        "ReplicaFailed, blocks back": failed == raised == len(hs) and dead,
+    }
+    log(f"[serving] (d) lifecycle: aborted after {len(aborted.tokens)} "
+        f"tokens; expired at admission; hot_swap changed "
+        f"{sum(a != b for a, b in zip(before.tokens, after.tokens))}/"
+        f"{len(after.tokens)} tokens (greedy {pin['exact']} exact); beat "
+        f"age {live['beat_age_s'] * 1e3:.1f} ms; fail_inflight failed "
+        f"{failed}, raised {raised}")
+    return {"checks": checks, "aborted_tokens": len(aborted.tokens),
+            "hot_swap_pin": pin, "beat_age_s": live["beat_age_s"]}
+
+
+def serving_http(params, cfg) -> dict:
+    """(e) the HTTP server on an ephemeral port: three generations,
+    /metrics against stats(), and 429 from a full queue (the scheduler
+    held in a delay fault while the queue fills)."""
+    import urllib.error
+    import urllib.request
+
+    from determined_clone_tpu_torch import faults
+    from determined_clone_tpu_torch.serving.http import (
+        ServingHTTPServer,
+        generate_over_http,
+    )
+    from determined_clone_tpu_torch.telemetry.metrics import (
+        parse_prometheus_text,
+    )
+
+    prompts = prompts_of(SERVE["spec_lengths"][:3], cfg.vocab_size, 96)
+    with serving_engine(params, cfg, serving_config()) as eng, \
+            ServingHTTPServer(eng) as srv:
+        outs = [generate_over_http(srv.url, p, max_new_tokens=SERVE["new"])
+                for p in prompts]
+        with urllib.request.urlopen(f"{srv.url}/metrics", timeout=60) as r:
+            text = r.read().decode()
+        eng.wait_idle()
+        stats = eng.stats()
+    values = {n: v for n, labels, v in parse_prometheus_text(text)["samples"]
+              if not labels}
+
+    class _R:
+        def __init__(self, out):
+            self.tokens, self.request_id = out["tokens"], out["request_id"]
+    pin = check_greedy(params, cfg, prompts, [_R(o) for o in outs],
+                       **pin_rule(cfg))
+    delay = {"rules": [{"point": "engine.step", "action": "delay",
+                        "delay_s": 3.0}]}
+    with serving_engine(params, cfg, serving_config(max_queue_depth=1)) \
+            as eng, ServingHTTPServer(eng) as srv, faults.plan_active(delay):
+        first = eng.submit(prompts[0], 4)
+        while not eng.stats().peak_active:
+            time.sleep(0.001)
+        second = eng.submit(prompts[1], 4)  # fills the queue
+        req = urllib.request.Request(
+            f"{srv.url}/v1/generate", data=json.dumps(
+                {"prompt": prompts[2], "max_new_tokens": 4}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        first.result(timeout=600), second.result(timeout=600)
+    checks = {
+        "http: three generations return their tokens (phase-4 rule)": all(
+            len(o["tokens"]) == SERVE["new"]
+            and "spec_acceptance" in o["latency"] for o in outs)
+        and pinned(pin, [_R(o) for o in outs]),
+        "http: /metrics parses and agrees with stats()": (
+            values["serving_requests_completed_total"] == stats.completed
+            == 3 and values["serving_tokens_generated_total"]
+            == stats.tokens_generated
+            and values["serving_free_kv_blocks"] == stats.free_blocks),
+        "http: a full queue answers 429": code == 429,
+    }
+    log(f"[serving] (e) http: 3 generations (greedy {pin['exact']} exact, "
+        f"{pin['near_ties']} near ties), /metrics completed "
+        f"{values['serving_requests_completed_total']:.0f} tokens "
+        f"{values['serving_tokens_generated_total']:.0f}; full queue -> "
+        f"{code}")
+    return {"checks": checks, "pin": pin, "overload_code": code}
+
+
+def serving_warmup(params, params2, cfg, scaled, lines) -> dict:
+    """(f) the phase-4 burst with prefix cache, chunking and speculation
+    on, on a cold engine and on one warmed by CUDA-graph capture; then
+    hot_swap on the warmed engine."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    lane = lane_name(cfg, scaled)
+    prompts = prompts_of(SERVE["burst"], cfg.vocab_size, 0)
+    new, layers = SERVE["new"], SERVE["draft_layers"]
+    draft, _ = gpt.slice_prefix_layers(params, cfg, layers)
+    scfg = serving_config(prefix_cache=True, chunk_prefill_len=SERVE["chunk"],
+                          speculative=spec_block(cfg, SERVE["spec_k"],
+                                                 layers))
+
+    def run(eng, label):
+        res = burst(eng, prompts, new)
+        eng.flush_prefix_cache()
+        prof = profile_window(lambda: burst(eng, prompts, new),
+                              f"serving burst, {lane}, {label}", lines)
+        eng.flush_prefix_cache()
+        return res[0], {
+            "tokens_per_s": sum(len(r.tokens) for r in res[0]) / res[1],
+            "wall_s": res[1], "p50_ms": res[2] * 1e3, "p99_ms": res[3] * 1e3,
+            "device_ms": prof["device_ms"],
+            "busy_share": prof["device_ms"] / 1e3 / res[1]}
+
+    with serving_engine(params, cfg, scfg, draft_params=draft) as eng:
+        eng.generate([1, 2, 3], 2)  # first calls: cuBLAS handles, allocator
+        eng.flush_prefix_cache()
+        cold_res, cold = run(eng, "cold (eager)")
+        cold_calls = eng.program_calls()
+    del eng
+    with serving_engine(params, cfg, scfg, draft_params=draft) as eng:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        programs = eng.warmup()
+        warm_s = time.monotonic() - t0
+        budget = eng.program_budget()
+        mem = {"allocated_before_gib": mem0 / 2 ** 30,
+               "allocated_after_gib": torch.cuda.memory_allocated() / 2 ** 30,
+               "reserved_after_gib": torch.cuda.memory_reserved() / 2 ** 30}
+        calls0 = eng.program_calls()
+        warm_res, warm = run(eng, "warm (graph replays)")
+        calls1 = eng.program_calls()
+        eng.hot_swap(params2)
+        swapped = eng.generate(prompts[3], new, timeout=900)
+        calls2 = eng.program_calls()
+        eng.wait_idle()
+        eng.assert_kv_balanced(eng.stats().prefix_cached_entries)
+    pin = check_greedy(params, cfg, prompts, cold_res, **pin_rule(cfg))
+    pin_swap = check_greedy(params2, cfg, [prompts[3]], [swapped],
+                            **pin_rule(cfg))
+    burst_calls = {k: calls1[k] - calls0[k] for k in calls0}
+    swap_calls = {k: calls2[k] - calls1[k] for k in calls1}
+    checks = {
+        f"warmup ({lane}): programs_compiled() == program_budget()": (
+            programs == budget),
+        f"warmup ({lane}): the warm burst ran graph replays only": (
+            burst_calls["eager"] == 0 and burst_calls["replays"] > 0),
+        f"warmup ({lane}): the warm burst's tokens are the cold engine's": [
+            r.tokens for r in warm_res] == [r.tokens for r in cold_res],
+        f"warmup ({lane}): the cold burst follows the greedy loop (phase-4 "
+        f"rule)": pinned(pin, cold_res),
+        f"warmup ({lane}): hot_swap after warmup serves the new weights "
+        f"(phase-4 rule), by replays only": pinned(pin_swap, [swapped])
+        and swap_calls["eager"] == 0,
+    }
+    log(f"[serving] (f) warmup, {lane}: {programs} programs (budget "
+        f"{budget}) in {warm_s:.2f} s; memory {mem}")
+    for label, r in (("cold", cold), ("warm", warm)):
+        log(f"[serving] (f) burst {label}, {lane}: {r['tokens_per_s']:.1f} "
+            f"tokens/s, p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, "
+            f"device {r['device_ms']:.1f} ms, busy share "
+            f"{r['busy_share']:.3f}")
+    log(f"[serving] (f) {lane}: warm burst calls {burst_calls} (cold engine "
+        f"{cold_calls}); greedy {pin['exact']} exact, {pin['near_ties']} "
+        f"near ties, echo share {echo_share(prompts, cold_res):.3f}; "
+        f"hot_swap after warmup: calls {swap_calls}, greedy "
+        f"{pin_swap['exact']} exact, {pin_swap['near_ties']} near ties")
+    return {"checks": checks, "programs": programs, "budget": budget,
+            "warmup_s": warm_s, "memory": mem, "cold": cold, "warm": warm,
+            "warm_burst_calls": burst_calls, "cold_calls": cold_calls,
+            "pin": pin, "hot_swap_pin": pin_swap}
+
+
+def phase_serving(params, cfg) -> dict:
+    """Phase 9: the serving features at ``cfg``'s width, each part's
+    checks failing the run; the flash kernel's launch count set to 0
+    before and read after (the paged forward attends through ``mha``).
+    (a), (b) and (f) run twice: on ``params`` in ``cfg``'s bf16 under the
+    phase-4 rule, and on ``branch_scaled(params)`` in fp32 token for
+    token, where the context decides the tokens."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+
+    params2 = gpt.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    scaled, scaled2 = branch_scaled(params), branch_scaled(params2)
+    lines: list = []
+    flash_attention.launches = 0
+    t0 = time.monotonic()
+    parts = {}
+    with torch.no_grad():
+        parts["prefix"] = serving_prefix(params, cfg, False)
+        parts["prefix_fp32_scaled"] = serving_prefix(scaled, cfg32, True)
+        parts["prefix_bf16_scaled"] = serving_prefix_witness(scaled, cfg)
+        parts["chunked"] = serving_chunked(params, cfg, False)
+        parts["chunked_fp32_scaled"] = serving_chunked(scaled, cfg32, True)
+        parts["speculative"] = serving_speculative(params, cfg)
+        parts["lifecycle"] = serving_lifecycle(params, params2, cfg)
+        parts["http"] = serving_http(params, cfg)
+        parts["warmup"] = serving_warmup(params, params2, cfg, False, lines)
+        parts["warmup_fp32_scaled"] = serving_warmup(scaled, scaled2, cfg32,
+                                                     True, lines)
+    wall = time.monotonic() - t0
+    launches = flash_attention.launches
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_profile.txt"), "a") as f:
+        f.write("\n" + "\n".join(lines))
+    checks = {}
+    for part in parts.values():
+        checks.update(part.pop("checks"))
+    checks["no flash launch in phase 9"] = launches == 0
+    for name, ok in checks.items():
+        log(f"[serving] check {'ok' if ok else 'FAILED'}: {name}")
+    log(f"[serving] phase 9 wall {wall:.1f} s; flash launches {launches}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 9 checks failed: {failed}")
+    return {**parts, "flash_launches": launches, "wall_s": wall,
+            "checks": checks}
+
+
 def kernel_entry(case: dict) -> dict:
     return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "call_ms": case["call_ms"], "plain_ms": case["plain_ms"],
@@ -1635,6 +2335,7 @@ def main(argv) -> int:
     from determined_clone_tpu_torch.models import gpt
 
     quick = "--quick" in argv
+    t_script = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1658,6 +2359,10 @@ def main(argv) -> int:
     report["train"] = phase_train()
     report["trial"] = phase_trial(report["train"]["samples_per_s"])
     report["families"] = phase_families()
+    cfg = gpt.GPTConfig()
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    report["serving"] = phase_serving(params, cfg)
+    del params
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1674,9 +2379,12 @@ def main(argv) -> int:
         "train_launches": report["train"]["launches"],
         "train_launches_per_step": report["train"]["launches_per_step"],
         "trial_launches": report["trial"]["launches"],
+        "serving_launches": report["serving"]["flash_launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi
+    report["wall_s"] = time.monotonic() - t_script
+    log(f"[env] whole script {report['wall_s']:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -9,8 +9,9 @@ own copy of what it needs).
 Entry points default to ``device="cuda"`` and raise when CUDA is absent
 unless the caller asks for the CPU explicitly, so a run that meant to
 use the card can never quietly land on the host. The one hand-written
-kernel of this slice is the flash-attention forward
-(``csrc/flash_attn_fwd.cu``, wrapped by ``ops/flash_attention.py``).
+kernel is the flash-attention forward (``csrc/flash_attn_fwd.cu``,
+wrapped by ``ops/flash_attention.py``); the serving engine captures its
+paged forward in CUDA graphs (``serving/engine.py``).
 """
 from determined_clone_tpu_torch.device import resolve_device
 

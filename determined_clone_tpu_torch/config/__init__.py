@@ -1,5 +1,6 @@
 """Experiment configuration — the port's trimmed copy of the JAX
-package's ``config`` (the fields the training loop reads)."""
+package's ``config`` (the fields the training loop and the serving
+engine read)."""
 from determined_clone_tpu_torch.config.experiment import (
     CheckpointStorageConfig,
     ConfigError,
@@ -7,6 +8,8 @@ from determined_clone_tpu_torch.config.experiment import (
     OptimizationsConfig,
     ResourcesConfig,
     SearcherConfig,
+    ServingConfig,
+    SpeculativeConfig,
 )
 from determined_clone_tpu_torch.config.length import Length, Unit
 
@@ -18,5 +21,7 @@ __all__ = [
     "OptimizationsConfig",
     "ResourcesConfig",
     "SearcherConfig",
+    "ServingConfig",
+    "SpeculativeConfig",
     "Unit",
 ]

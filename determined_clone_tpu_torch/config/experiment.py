@@ -1,15 +1,17 @@
 """Experiment configuration — the port's trimmed copy of
 ``determined_clone_tpu/config/experiment.py``.
 
-It keeps the fields the training loop reads, with the JAX package's
-defaults, and raises :class:`ConfigError` where the JAX config does for
-them: an unknown key, a value of the wrong type, an unknown searcher
-name or storage type, a storage block without its path, a negative
-``prefetch_depth``, ``steps_per_dispatch`` or ``scheduling_unit`` below
-1, an unknown ``checkpoint_policy``, a fault rule without a point.
-Blocks that describe the cluster and not the trial (labels, workspace,
-log policies, ``serving``, ``environment``, ``data``) are accepted and
-not parsed. Of the legacy (v0) spellings the JAX package
+It keeps the fields the training loop and the serving engine read, with
+the JAX package's defaults, and raises :class:`ConfigError` where the
+JAX config does for them: an unknown key, a value of the wrong type, an
+unknown searcher name or storage type, a storage block without its
+path, a negative ``prefetch_depth``, ``steps_per_dispatch`` or
+``scheduling_unit`` below 1, an unknown ``checkpoint_policy``, a fault
+rule without a point, and every check of the ``serving:`` block
+(:class:`ServingConfig`, :class:`SpeculativeConfig`, with the JAX
+package's messages). Blocks that describe the cluster and not the trial
+(labels, workspace, log policies, ``environment``, ``data``) are
+accepted and not parsed. Of the legacy (v0) spellings the JAX package
 shims, only the horovod-era ``optimizations`` keys are accepted (and
 ignored, as the shim drops them).
 
@@ -53,6 +55,12 @@ _OBSERVABILITY_KEYS = {
     "anomaly_window", "anomaly_threshold", "anomaly_min_samples",
     "timeseries", "stale_after_s", "rules", "stock_slo_rules",
 }
+_SERVING_KEYS = {"max_batch", "max_prefill_len", "kv_block_size",
+                 "kv_blocks", "max_queue_depth", "default_max_new_tokens",
+                 "host", "port", "prefix_cache", "chunk_prefill_len",
+                 "speculative"}
+_SPECULATIVE_KEYS = {"enabled", "k", "draft_layers", "draft_d_model",
+                     "draft_n_heads", "draft_d_ff"}
 _FAULT_RULE_KEYS = {"point", "action", "nth", "times", "probability",
                     "delay_s", "exc", "message", "exit_code", "keep_bytes"}
 _FAULT_ACTIONS = ("error", "delay", "truncate", "exit")
@@ -228,6 +236,145 @@ class FaultsConfig:
         return cfg
 
 
+@dataclasses.dataclass
+class SpeculativeConfig:
+    """The ``serving.speculative:`` block — draft-model speculative
+    decoding. The draft GPT shares the target's vocabulary and
+    max_seq_len; only its depth and widths are chosen here. Greedy output
+    equals plain decode whatever the draft — a bad draft costs speed."""
+    enabled: bool = False
+    k: int = 4                      # draft tokens proposed per iteration
+    draft_layers: int = 1
+    draft_d_model: int = 128
+    draft_n_heads: int = 2
+    draft_d_ff: int = 512
+
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "SpeculativeConfig":
+        if not isinstance(raw, dict):
+            raise ConfigError(
+                f"serving.speculative must be a mapping, got {raw!r}")
+        cfg = SpeculativeConfig(
+            enabled=bool(raw.get("enabled", False)),
+            k=int(raw.get("k", 4)),
+            draft_layers=int(raw.get("draft_layers", 1)),
+            draft_d_model=int(raw.get("draft_d_model", 128)),
+            draft_n_heads=int(raw.get("draft_n_heads", 2)),
+            draft_d_ff=int(raw.get("draft_d_ff", 512)),
+        )
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        if not 1 <= self.k <= 16:
+            raise ConfigError(
+                f"serving.speculative.k must be in [1, 16], got {self.k}")
+        for name, v in (("draft_layers", self.draft_layers),
+                        ("draft_d_model", self.draft_d_model),
+                        ("draft_n_heads", self.draft_n_heads),
+                        ("draft_d_ff", self.draft_d_ff)):
+            if v < 1:
+                raise ConfigError(
+                    f"serving.speculative.{name} must be >= 1, got {v}")
+        if self.draft_d_model % self.draft_n_heads:
+            raise ConfigError(
+                f"serving.speculative.draft_d_model "
+                f"{self.draft_d_model} must divide by draft_n_heads "
+                f"{self.draft_n_heads}")
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """The ``serving:`` block: the engine's shape and capacity contract
+    (buckets bound the program count, KV blocks bound concurrent
+    context, queue depth is the admission valve) and its speed
+    features."""
+    max_batch: int = 8              # largest (pow2) batch bucket
+    max_prefill_len: int = 128      # largest (pow2) prompt-length bucket
+    kv_block_size: int = 16         # KV pool block size (pow2 positions)
+    kv_blocks: int = 0              # pool blocks; 0 = size for max_batch
+    max_queue_depth: int = 64       # admission valve → 429/ServerOverloaded
+    default_max_new_tokens: int = 64
+    host: str = "127.0.0.1"
+    port: int = 8191
+    prefix_cache: bool = False      # copy-on-write prompt-prefix sharing
+    chunk_prefill_len: int = 0      # 0 = off; else a prefill bucket size
+    speculative: SpeculativeConfig = dataclasses.field(
+        default_factory=SpeculativeConfig)
+
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "ServingConfig":
+        if not isinstance(raw, dict):
+            raise ConfigError(f"serving must be a mapping, got {raw!r}")
+        cfg = ServingConfig(
+            max_batch=int(raw.get("max_batch", 8)),
+            max_prefill_len=int(raw.get("max_prefill_len", 128)),
+            kv_block_size=int(raw.get("kv_block_size", 16)),
+            kv_blocks=int(raw.get("kv_blocks", 0)),
+            max_queue_depth=int(raw.get("max_queue_depth", 64)),
+            default_max_new_tokens=int(raw.get("default_max_new_tokens", 64)),
+            host=str(raw.get("host", "127.0.0.1")),
+            port=int(raw.get("port", 8191)),
+            prefix_cache=bool(raw.get("prefix_cache", False)),
+            chunk_prefill_len=int(raw.get("chunk_prefill_len", 0)),
+            speculative=SpeculativeConfig.from_dict(
+                raw.get("speculative", {})),
+        )
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        for name, v in (("max_batch", self.max_batch),
+                        ("max_prefill_len", self.max_prefill_len),
+                        ("kv_block_size", self.kv_block_size)):
+            if v < 1 or v & (v - 1):
+                raise ConfigError(
+                    f"serving.{name} must be a power of two >= 1, got {v}")
+        if self.kv_blocks < 0:
+            raise ConfigError(
+                f"serving.kv_blocks must be >= 0 (0 = auto), "
+                f"got {self.kv_blocks}")
+        if self.max_queue_depth < 1:
+            raise ConfigError(
+                f"serving.max_queue_depth must be >= 1, "
+                f"got {self.max_queue_depth}")
+        if self.default_max_new_tokens < 1:
+            raise ConfigError(
+                f"serving.default_max_new_tokens must be >= 1, "
+                f"got {self.default_max_new_tokens}")
+        if not 0 < self.port < 65536:
+            raise ConfigError(
+                f"serving.port must be in (0, 65536), got {self.port}")
+        if self.chunk_prefill_len < 0:
+            raise ConfigError(
+                f"serving.chunk_prefill_len must be >= 0 (0 = off), "
+                f"got {self.chunk_prefill_len}")
+        if self.chunk_prefill_len:
+            v = self.chunk_prefill_len
+            if (v & (v - 1) or v > self.max_prefill_len
+                    or v < min(8, self.max_prefill_len)):
+                raise ConfigError(
+                    f"serving.chunk_prefill_len must be a power of two "
+                    f"in [{min(8, self.max_prefill_len)}, "
+                    f"{self.max_prefill_len}] (it must land on a prefill "
+                    f"bucket), got {v}")
+        self.speculative.validate()
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def _serving(raw: Any) -> ServingConfig:
+    """The ``serving:`` block with its unknown keys refused, as the JAX
+    package's schema refuses them before ``ServingConfig.from_dict``."""
+    raw = _mapping(raw, "serving")
+    _known(raw, _SERVING_KEYS, "serving")
+    spec = raw.get("speculative", {})
+    if isinstance(spec, dict):
+        _known(spec, _SPECULATIVE_KEYS, "serving.speculative")
+    return ServingConfig.from_dict(raw)
+
+
 def _check_observability(raw: Any) -> None:
     raw = _mapping(raw, "observability")
     _known(raw, _OBSERVABILITY_KEYS, "observability")
@@ -248,6 +395,7 @@ class ExperimentConfig:
     optimizations: OptimizationsConfig = dataclasses.field(
         default_factory=OptimizationsConfig)
     faults: Optional[FaultsConfig] = None
+    serving: Optional[ServingConfig] = None
     checkpoint_policy: str = "best"     # best | all | none
     min_validation_period: Optional[Length] = None
     min_checkpoint_period: Optional[Length] = None
@@ -277,6 +425,8 @@ class ExperimentConfig:
                 raw.get("optimizations") or {}),
             faults=(FaultsConfig.from_dict(raw["faults"])
                     if raw.get("faults") else None),
+            serving=(_serving(raw["serving"]) if raw.get("serving")
+                     else None),
             checkpoint_policy=raw.get("checkpoint_policy", "best"),
             min_validation_period=(
                 _length(raw["min_validation_period"], "min_validation_period")

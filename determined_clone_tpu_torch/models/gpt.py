@@ -8,9 +8,13 @@ Python loop over the layers takes the place of ``lax.scan``.
 Covered: the uncached forward (``apply``, through the CUDA
 flash-attention kernel on the card), training (``loss_fn`` with dropout
 and remat per block; the flash backward recomputes through the blockwise
-attention), and the paged prefill/decode forward the serving engine runs
-(``forward_paged``). MoE, pipelining, ``forward_paged_logits`` and the
-identity-layer helpers come in later slices.
+attention), the paged prefill/decode forward the serving engine runs
+(``forward_paged``) and its all-position form for the speculative verify
+(``forward_paged_logits``), and the identity-layer helpers that build a
+speculative testbed (``extend_with_identity_layers``,
+``slice_prefix_layers``). The paged forward has fixed shapes and no host
+sync, so the engine can capture it in a CUDA graph. MoE and pipelining
+come in later slices.
 """
 from __future__ import annotations
 
@@ -302,29 +306,53 @@ def loss_fn(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     return (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
 
 
+def _check_scratch(pool: torch.Tensor) -> None:
+    """Refuse a pool [L, N, bs, H, hd] that is not a view of the
+    ``[L, N + 1, bs, H, hd]`` allocation ``init_kv_pools`` makes: every
+    layer needs the scratch block behind its N blocks, and a plain pool's
+    "scratch" would be the next layer's block 0. Checked once for the
+    whole pool, before the first write."""
+    L, N, bs, H, hd = pool.shape
+    block = bs * H * hd
+    layout = ((N + 1) * block, block, H * hd, hd, 1)
+    need = (pool.storage_offset() + L * (N + 1) * block) * pool.element_size()
+    if pool.stride() != layout or pool.untyped_storage().nbytes() < need:
+        raise ValueError("paged KV pools must come from "
+                         "serving.kv_cache.init_kv_pools (each layer needs "
+                         "its scratch block)")
+
+
+def _with_scratch(pool_l: torch.Tensor) -> torch.Tensor:
+    """This layer's pool [N, bs, H, hd] (of a pool that passed
+    :func:`_check_scratch`) as flat slots [(N + 1) * bs, H, hd]: the
+    N*bs real slots, then the hidden scratch block where masked tokens'
+    K/V land, so the scatter has a fixed shape."""
+    N, bs, H, hd = pool_l.shape
+    return pool_l.as_strided(((N + 1) * bs, H, hd), (H * hd, hd, 1))
+
+
 def _block_paged(cfg: GPTConfig, bp: Params, x: torch.Tensor,
                  positions: torch.Tensor, k_pool_l: torch.Tensor,
-                 v_pool_l: torch.Tensor, src_rows: torch.Tensor,
-                 dst_slots: torch.Tensor, gather_idx: torch.Tensor,
+                 v_pool_l: torch.Tensor, scatter_idx: torch.Tensor,
+                 gather_idx: torch.Tensor,
                  attn_mask: torch.Tensor) -> torch.Tensor:
     """One pre-LN block on the paged-KV serving path.
 
     x: [B, T, D] new tokens only. k_pool_l/v_pool_l: [N, bs, H, hd], this
-    layer's view of the pools, written IN PLACE: new-token rows
-    ``src_rows`` of the flattened [B*T] K/V go to flat slots
-    ``dst_slots`` (padding tokens were already dropped, as the JAX
-    scatter's mode="drop" drops them). Attention then gathers the whole
-    paged context through ``gather_idx`` ([B, S]) under ``attn_mask``
-    ([B, 1, T, S]).
+    layer's view of the pools, written IN PLACE: the flattened [B*T]
+    new K/V go to flat slots ``scatter_idx``, where masked tokens point at
+    the scratch block (the JAX scatter's mode="drop" drops them). Two
+    sequences never share a written block, so real slots are
+    collision-free. Attention then gathers the whole paged context
+    through ``gather_idx`` ([B, S]) under ``attn_mask`` ([B, 1, T, S]).
     """
     B, T, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    N, bs = k_pool_l.shape[0], k_pool_l.shape[1]
     q, k, v = _qkv(cfg, bp, x, positions)
-    k_flat = k_pool_l.view(N * bs, H, hd)
-    v_flat = v_pool_l.view(N * bs, H, hd)
-    k_flat.index_copy_(0, dst_slots, k.reshape(B * T, H, hd)[src_rows])
-    v_flat.index_copy_(0, dst_slots, v.reshape(B * T, H, hd)[src_rows])
+    k_flat = _with_scratch(k_pool_l)
+    v_flat = _with_scratch(v_pool_l)
+    k_flat.index_copy_(0, scatter_idx, k.reshape(B * T, H, hd))
+    v_flat.index_copy_(0, scatter_idx, v.reshape(B * T, H, hd))
     # slot j of the gathered context is sequence position j
     attn = mha(q, k_flat[gather_idx], v_flat[gather_idx], causal=False,
                mask=attn_mask)
@@ -336,22 +364,25 @@ def _paged_backbone(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
                     k_pool: torch.Tensor, v_pool: torch.Tensor,
                     block_tables: torch.Tensor) -> torch.Tensor:
     """Embed → paged transformer stack → final layernorm; returns the
-    normed hidden states [B, T, D] and updates the pools in place."""
+    normed hidden states [B, T, D] and updates the pools in place. Every
+    shape here follows the arguments' shapes alone, and nothing reads a
+    value back to the host."""
     B, T = tokens.shape
     N, bs = k_pool.shape[1], k_pool.shape[2]
-    S = block_tables.shape[1] * bs
+    W = block_tables.shape[1]
+    S = W * bs
     dev = tokens.device
     positions = positions.long()
     tables = block_tables.long()
+    _check_scratch(k_pool)
+    _check_scratch(v_pool)
 
     # scatter slots for the new tokens: pool block backing position p is
-    # block_tables[b, p // bs]; padding tokens get the out-of-range slot
-    # N*bs and are dropped, once for all layers
-    blk = torch.gather(tables, 1, positions // bs)
+    # block_tables[b, p // bs]; masked tokens go to the scratch slot N*bs
+    # (their positions may run past the table: clamp the lookup)
+    blk = torch.gather(tables, 1, (positions // bs).clamp(max=W - 1))
     scatter_idx = torch.where(token_mask, blk * bs + positions % bs,
                               torch.full_like(blk, N * bs)).reshape(B * T)
-    src_rows = torch.nonzero(scatter_idx < N * bs).squeeze(1)
-    dst_slots = scatter_idx[src_rows]
     gather_idx = (tables[:, :, None] * bs
                   + torch.arange(bs, device=dev)[None, None, :]).reshape(B, S)
     # context slot j == sequence position j: causal = "j <= my position"
@@ -361,8 +392,7 @@ def _paged_backbone(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     x = embedding(params["embed"], tokens, compute_dtype=cfg.compute_dtype)
     for i in range(cfg.n_layers):
         x = _block_paged(cfg, _layer(params, i), x, positions, k_pool[i],
-                         v_pool[i], src_rows, dst_slots, gather_idx,
-                         attn_mask)
+                         v_pool[i], scatter_idx, gather_idx, attn_mask)
     return layernorm(params["final_norm"], x)
 
 
@@ -387,8 +417,9 @@ def forward_paged(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
       token_mask: bool [B, T]; False marks padding, which is neither
                   written to the pool nor attended to.
       last_index: int [B], index into T of each row's last real token.
-      k_pool/v_pool: [L, N, block, H, hd] paged pools, updated IN PLACE
-                  (where the JAX engine donates them to the jitted call).
+      k_pool/v_pool: [L, N, block, H, hd] paged pools from
+                  ``init_kv_pools``, updated IN PLACE (where the JAX
+                  engine donates them to the jitted call).
       block_tables: int [B, W] pool block ids per sequence; entry w backs
                   positions [w*block, (w+1)*block).
 
@@ -401,6 +432,72 @@ def forward_paged(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
                         v_pool, block_tables)
     h_last = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
     return _logits(params, cfg, h_last).float(), k_pool, v_pool
+
+
+def forward_paged_logits(params: Params, cfg: GPTConfig,
+                         tokens: torch.Tensor, positions: torch.Tensor,
+                         token_mask: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, block_tables: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-token paged forward returning logits at *every* position:
+    the speculative verify step, where the target scores ``[last
+    committed token, draft_1 .. draft_k]`` in one call (``T == k + 1``).
+
+    Same arguments as :func:`forward_paged` minus ``last_index``; returns
+    ``(logits [B, T, V] fp32, k_pool, v_pool)``. K/V for all masked-in
+    tokens are written to the pool — rejected drafts leave stale entries
+    past the accepted frontier, which is safe: attention masks slots
+    beyond the query's own position, and the next iteration's scatter
+    overwrites them before they ever become visible.
+    """
+    x = _paged_backbone(params, cfg, tokens, positions, token_mask, k_pool,
+                        v_pool, block_tables)
+    return _logits(params, cfg, x).float(), k_pool, v_pool
+
+
+def extend_with_identity_layers(params: Params, cfg: GPTConfig,
+                                extra_layers: int
+                                ) -> Tuple[Params, GPTConfig]:
+    """Append ``extra_layers`` exact-identity residual blocks.
+
+    A pre-LN block whose ``attn_out`` and ``mlp_down`` projections
+    (kernel AND bias) are zero adds exactly zero to the residual stream:
+    the extended model's logits equal the original's, while every call
+    pays the deeper model's weight traffic and op count. The pair
+    (original, extended) is then a speculative-decoding testbed whose
+    draft is perfectly distilled: greedy acceptance is exactly 1.0.
+    Returns ``(params, cfg)`` for the deepened model; the new layers copy
+    layer 0's other weights.
+    """
+    if extra_layers <= 0:
+        return params, cfg
+    zero_adds = ("attn_out", "mlp_down")
+
+    def pad(name: str, leaf: torch.Tensor) -> torch.Tensor:
+        tile = leaf[:1].expand(extra_layers, *leaf.shape[1:])
+        if name in zero_adds:
+            tile = torch.zeros_like(tile)
+        return torch.cat([leaf, tile], dim=0)
+
+    out = dict(params)
+    out["blocks"] = {name: {k: pad(name, v) for k, v in sub.items()}
+                     for name, sub in params["blocks"].items()}
+    return out, dataclasses.replace(cfg, n_layers=cfg.n_layers + extra_layers)
+
+
+def slice_prefix_layers(params: Params, cfg: GPTConfig, n_layers: int
+                        ) -> Tuple[Params, GPTConfig]:
+    """Keep only the first ``n_layers`` stacked blocks (embedding, final
+    norm and head shared, as views) — the draft half of the identity
+    testbed, and a layer-sliced draft of any stacked-block model.
+    Returns ``(params, cfg)``."""
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"n_layers must be in [1, {cfg.n_layers}], "
+                         f"got {n_layers}")
+    out = dict(params)
+    out["blocks"] = {name: {k: v[:n_layers] for k, v in sub.items()}
+                     for name, sub in params["blocks"].items()}
+    return out, dataclasses.replace(cfg, n_layers=n_layers)
 
 
 def param_count(params: Params) -> int:

@@ -4,8 +4,9 @@
 The engine pads its dynamic dimensions (batch rows, prompt length) up to
 a bucket from a small fixed ladder, so the paged forward only ever sees
 ``program_budget`` distinct shapes — the budget the JAX engine's jit
-cache is held to, and the shape set a later CUDA-graph capture of these
-calls would cover.
+cache is held to, and the set of CUDA graphs the port's engine captures
+at warmup (:meth:`BucketSpec.extended_budget` adds the draft model's
+ladder, the speculative verify and the block copies).
 """
 from __future__ import annotations
 
@@ -76,6 +77,42 @@ class BucketSpec:
         pair plus a T=1 decode shape per batch bucket."""
         return (len(self.batch_buckets) * len(self.prefill_len_buckets)
                 + len(self.batch_buckets))
+
+    def validate_chunk_len(self, chunk_len: int) -> int:
+        """Chunked prefill reuses the prefill ladder: a chunk call pads
+        to ``chunk_len`` exactly, so requiring the chunk length to BE a
+        ladder entry means chunking adds no program."""
+        if chunk_len not in self.prefill_len_buckets:
+            raise ValueError(
+                f"chunk_prefill_len {chunk_len} must be one of the "
+                f"prefill buckets {self.prefill_len_buckets} so chunked "
+                f"prefill stays inside the program budget")
+        return chunk_len
+
+    def extended_budget(self, *, speculative: bool = False,
+                        prefix_cache: bool = False,
+                        kv_store: bool = False) -> int:
+        """Programs across ALL the engine's device entry points (the
+        number warmup captures):
+
+        - base ladder (target prefill x batch + T=1 decode x batch);
+        - speculative: the draft model runs the same ladder (its prefill
+          mirrors every target prefill shape, its k-token proposal loop
+          is T=1 decode), plus one k+1-token verify per batch bucket on
+          the target;
+        - prefix sharing: one copy-on-write block copy per pool pair
+          (target, and draft when speculative);
+        - KV tier: one block write per pool pair (counted for the JAX
+          package's ladder; the port's engine has no KV tier yet).
+        """
+        budget = self.program_budget
+        if speculative:
+            budget += self.program_budget + len(self.batch_buckets)
+        if prefix_cache:
+            budget += 2 if speculative else 1
+        if kv_store:
+            budget += 2 if speculative else 1
+        return budget
 
     @staticmethod
     def build(max_batch: int, max_prefill_len: int, *,

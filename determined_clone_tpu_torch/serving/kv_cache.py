@@ -6,15 +6,31 @@ H, hd]`` tensors in the compute dtype, sized at startup and never
 reallocated, and each admitted sequence owns the block ids covering
 ``ceil((prompt_len + max_new_tokens) / block_size)`` positions. The
 :class:`BlockAllocator` is host-side bookkeeping (refcounts over a free
-list), a copy of the JAX package's. Prefix sharing (``PrefixCache``)
-comes with a later slice.
+list), a copy of the JAX package's.
+
+Each layer of a pool is followed in memory by one hidden scratch block
+(:func:`init_kv_pools`): the paged forward sends the K/V of masked
+tokens there, so its scatter has a fixed shape (the JAX scatter drops
+them with ``mode="drop"``; a data-dependent selection of the unmasked
+rows would sync the host and could not be captured in a CUDA graph).
+The scratch is outside the ``[L, N, bs, H, hd]`` view that the engine
+and the tests see, and nothing ever reads it.
+
+Prefix sharing rides on the refcounts: the :class:`PrefixCache`
+content-hashes the prompt's blocks and lets a new sequence alias
+already-resident block ids through its block table, so a shared system
+prompt is stored once and its prefill skipped. A shared block is
+immutable; the engine copy-on-write forks the one block a new owner
+would ever write. The KV tiers' half of the JAX cache (``adopt``,
+``entries``) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import threading
-from typing import Any, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -43,13 +59,16 @@ def init_kv_pools(cfg: Any, cache: KVCacheConfig,
     """Zero K/V pools [L, N, block, H, hd] in the model's compute dtype.
 
     Zeros (not garbage) so never-written slots contribute exactly
-    0-probability * 0-value under the attention mask.
+    0-probability * 0-value under the attention mask. Each pool is a
+    view of a ``[L, N + 1, block, H, hd]`` allocation: block ``N`` of
+    every layer is the paged forward's scratch for masked tokens.
     """
     dev = resolve_device(device)
-    shape = (cfg.n_layers, cache.num_blocks, cache.block_size,
+    shape = (cfg.n_layers, cache.num_blocks + 1, cache.block_size,
              cfg.n_heads, cfg.head_dim)
-    return (torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-            torch.zeros(shape, dtype=cfg.compute_dtype, device=dev))
+    return tuple(torch.zeros(shape, dtype=cfg.compute_dtype,
+                             device=dev)[:, :cache.num_blocks]
+                 for _ in range(2))
 
 
 class BlockAllocator:
@@ -108,3 +127,156 @@ class BlockAllocator:
                 self._ref[b] -= 1
                 if self._ref[b] == 0:
                     self._free.append(b)
+
+    def outstanding(self) -> int:
+        """Blocks currently owned by someone (refcount > 0)."""
+        with self._lock:
+            return self._cache.num_blocks - len(self._free)
+
+    def assert_balanced(self, expected_outstanding: int = 0) -> None:
+        """Audit hook: every block not on the free list must be accounted
+        for by ``expected_outstanding`` live owners' worth of blocks —
+        with no active sequence and no prefix cache, anything else is a
+        leak."""
+        with self._lock:
+            held = self._cache.num_blocks - len(self._free)
+            if held != expected_outstanding:
+                owners = [i for i, r in enumerate(self._ref) if r > 0]
+                raise AssertionError(
+                    f"KV block balance: {held} blocks outstanding, "
+                    f"expected {expected_outstanding} "
+                    f"(held block ids: {owners[:16]}"
+                    f"{'...' if len(owners) > 16 else ''})")
+
+
+@dataclasses.dataclass
+class PrefixMatch:
+    """What :meth:`PrefixCache.match` found for one prompt.
+
+    ``blocks`` are resident block ids covering prompt positions
+    ``[0, shared_len)`` in order, already retained on behalf of the
+    caller (who must release them, or hand them to a sequence that
+    will). ``shared_len`` counts whole shared positions; it is a
+    multiple of the block size except when the final entry was an exact
+    partial-tail hit, in which case ``shared_len == len(prompt)``.
+    """
+    blocks: List[int]
+    shared_len: int
+
+
+class PrefixCache:
+    """Content-addressed index of resident prompt blocks.
+
+    Keys are chained hashes — ``h_i = sha256(h_{i-1} || tokens of block
+    i)`` with ``h_{-1}`` empty — so a key identifies both a block's
+    tokens and its absolute position, which is what lets a block table
+    alias it verbatim. Full prompt blocks are keyed by their chain hash;
+    the prompt's partial tail block is keyed by the chain hash of the
+    full prefix plus ``#tail`` and the exact tail tokens, so only a
+    byte-identical prompt can alias it.
+
+    The cache holds one allocator reference per indexed block; sequences
+    sharing a block add their own. Eviction (LRU, deepest-first so a
+    chain never strands unreachable descendants) merely drops the
+    cache's reference — blocks stay alive until their last sequence
+    retires. Single-writer: all mutation happens on the engine's
+    scheduler thread.
+    """
+
+    def __init__(self, cache: KVCacheConfig,
+                 allocator: BlockAllocator) -> None:
+        self._cfg = cache
+        self._alloc = allocator
+        # key -> (block id, depth, last-used tick, tail?); depth = block
+        # index within the prompt, used to evict leaves before parents
+        self._entries: Dict[bytes, Tuple[int, int, int, bool]] = {}
+        self._tick = 0
+
+    @staticmethod
+    def _chain(prev: bytes, tokens: Sequence[int]) -> bytes:
+        h = hashlib.sha256(prev)
+        h.update(b"|" + ",".join(str(int(t)) for t in tokens).encode())
+        return h.digest()
+
+    @staticmethod
+    def _tail_key(prev: bytes, tokens: Sequence[int]) -> bytes:
+        return PrefixCache._chain(prev + b"#tail", tokens)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def match(self, prompt: Sequence[int]) -> PrefixMatch:
+        """Longest resident prefix of ``prompt``, caller-retained."""
+        bs = self._cfg.block_size
+        blocks: List[int] = []
+        shared = 0
+        prev = b""
+        self._tick += 1
+        n_full = len(prompt) // bs
+        for i in range(n_full):
+            key = self._chain(prev, prompt[i * bs:(i + 1) * bs])
+            ent = self._entries.get(key)
+            if ent is None:
+                break
+            self._entries[key] = (ent[0], ent[1], self._tick, ent[3])
+            blocks.append(ent[0])
+            shared += bs
+            prev = key
+        else:
+            tail = prompt[n_full * bs:]
+            if tail:
+                key = self._tail_key(prev, tail)
+                ent = self._entries.get(key)
+                if ent is not None:
+                    self._entries[key] = (ent[0], ent[1], self._tick, ent[3])
+                    blocks.append(ent[0])
+                    shared += len(tail)
+        if blocks:
+            self._alloc.retain(blocks)
+        return PrefixMatch(blocks, shared)
+
+    def register(self, prompt: Sequence[int], blocks: Sequence[int]) -> None:
+        """Index a just-prefilled prompt's blocks (one id per prompt
+        block, in order). Already-indexed keys are left alone — first
+        writer wins, and colliding later sequences hold private copies."""
+        bs = self._cfg.block_size
+        self._tick += 1
+        prev = b""
+        n_full = len(prompt) // bs
+        for i in range(n_full):
+            key = self._chain(prev, prompt[i * bs:(i + 1) * bs])
+            if key not in self._entries:
+                self._alloc.retain([blocks[i]])
+                self._entries[key] = (blocks[i], i, self._tick, False)
+            prev = key
+        tail = prompt[n_full * bs:]
+        if tail:
+            key = self._tail_key(prev, tail)
+            if key not in self._entries:
+                self._alloc.retain([blocks[n_full]])
+                self._entries[key] = (blocks[n_full], n_full, self._tick,
+                                      True)
+
+    def evict(self, want_free: int) -> int:
+        """Drop LRU entries until the allocator has ``want_free`` free
+        blocks or the cache is empty. Oldest tick first, deepest block
+        first on ties, so a chain's leaves go before its root. Returns
+        entries dropped."""
+        dropped = 0
+        while self._entries and self._alloc.free_blocks() < want_free:
+            key = min(self._entries,
+                      key=lambda k: (self._entries[k][2],
+                                     -self._entries[k][1]))
+            block = self._entries.pop(key)[0]
+            self._alloc.release([block])
+            dropped += 1
+        return dropped
+
+    def flush(self) -> int:
+        """Drop everything — cached KV is a function of the params, so
+        hot-swap invalidates the whole index."""
+        n = len(self._entries)
+        for block, _, _, _ in self._entries.values():
+            self._alloc.release([block])
+        self._entries.clear()
+        return n

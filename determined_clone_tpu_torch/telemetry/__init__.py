@@ -1,1 +1,3 @@
-"""Telemetry: the analytic FLOP count and MFU against the H100's peak."""
+"""Telemetry: the analytic FLOP counts (training and serving) and MFU
+against the H100's peak, the metrics registry with its Prometheus text,
+and the span tracer."""

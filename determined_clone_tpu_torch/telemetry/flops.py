@@ -1,5 +1,7 @@
 """Analytic FLOPs accounting and MFU — the port's copy of the GPT part of
-``determined_clone_tpu/telemetry/flops.py``.
+``determined_clone_tpu/telemetry/flops.py``: the training counts and the
+serving ones (prefill, KV-cached decode, whole requests, the speculative
+verify and step).
 
 Per-training-step floating point operations from the model config alone:
 a matmul of ``[m, k] @ [k, n]`` costs ``2*m*k*n`` FLOPs, and a training
@@ -128,6 +130,103 @@ def gpt_train_step_flops(cfg: Any, batch_size: int,
         tokens=tokens,
         breakdown={k: TRAIN_MULT * v * tokens for k, v in breakdown.items()},
     )
+
+
+def gpt_prefill_flops(cfg: Any, prompt_len: int) -> Dict[str, float]:
+    """Forward FLOPs of one serving prefill over a ``prompt_len`` prompt.
+
+    Same accounting convention as training (full [T, S] score matmul —
+    masking saves nothing arithmetically): each of the P prompt tokens
+    costs ``attention(s=P) + mlp + embedding``, so the call total is just
+    P times the per-token forward breakdown at sequence length P. Keys
+    are component totals for the whole call, plus ``"total"``.
+    """
+    per_tok = gpt_forward_flops_per_token(cfg, int(prompt_len))
+    out = {k: v * float(prompt_len) for k, v in per_tok.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def gpt_decode_flops_per_token(cfg: Any, context_len: int) -> Dict[str, float]:
+    """Forward FLOPs of ONE incremental decode step at KV-cache context
+    length ``context_len`` — the formula that makes serving MFU honest.
+
+    With the KV cache, the new token pays the full projections
+    (``L·8d²``) and MLP (``L·4df``) but its attention mix is linear in
+    the *context*, not quadratic in the sequence: scores ``[1, c]`` and
+    the value mix cost ``L·4·c·d`` (2cd QKᵀ + 2cd PV per layer). Compare
+    :func:`gpt_prefill_flops`, where every prompt token pays ``4·P·d`` —
+    the asymmetry is exactly why serving splits prefill from decode.
+    """
+    c = float(context_len)
+    out = {
+        "attention": cfg.n_layers * (8.0 * cfg.d_model * cfg.d_model
+                                     + 4.0 * c * cfg.d_model),
+        "mlp": mlp_flops_per_token(
+            cfg.d_model, cfg.d_ff, cfg.n_layers,
+            moe_experts=getattr(cfg, "moe_experts", 0),
+            moe_k=getattr(cfg, "moe_k", 2)),
+        "embedding": embedding_flops_per_token(cfg.d_model, cfg.vocab_size),
+    }
+    out["total"] = sum(out.values())
+    return out
+
+
+def gpt_generation_flops(cfg: Any, prompt_len: int, new_tokens: int, *,
+                         prefill_from: int = 0) -> float:
+    """Total forward FLOPs to serve one request: one prefill of
+    ``prompt_len`` plus ``new_tokens - 1`` incremental decode steps (the
+    first generated token falls out of the prefill logits; decode step j
+    runs at context ``prompt_len + j``).
+
+    ``prefill_from`` accounts for prefix sharing: positions before it
+    were aliased from the prefix cache, so only the suffix tokens pay
+    prefill FLOPs (each still at full sequence length ``prompt_len`` —
+    the same accounting convention as :func:`gpt_prefill_flops`). The
+    re-scored last prompt token keeps the suffix count >= 1.
+    """
+    p, n = int(prompt_len), int(new_tokens)
+    skip = min(max(0, int(prefill_from)), p - 1)
+    per_tok = gpt_forward_flops_per_token(cfg, p)
+    total = sum(per_tok.values()) * float(p - skip)
+    for j in range(1, n):
+        total += gpt_decode_flops_per_token(cfg, p + j)["total"]
+    return total
+
+
+def gpt_verify_flops(cfg: Any, context_len: int, k: int) -> Dict[str, float]:
+    """Forward FLOPs of ONE speculative verify call: the target scores
+    ``k + 1`` tokens (last committed token + k drafts) starting at
+    context ``context_len``. Each scored token pays the full projections
+    + MLP + embedding of a decode step, and its attention mix is linear
+    in its OWN context — token i of the call sees ``context_len + i``
+    cached positions — so the call total is the sum of k+1 consecutive
+    decode-step counts. This is why acceptance rate is the whole game:
+    the verify call costs what k+1 sequential decode steps cost, but
+    only ``accepted + 1`` of its tokens are emitted.
+    """
+    out: Dict[str, float] = {}
+    for i in range(int(k) + 1):
+        step = gpt_decode_flops_per_token(cfg, int(context_len) + i)
+        for key, v in step.items():
+            out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def gpt_speculative_step_flops(cfg: Any, draft_cfg: Any, context_len: int,
+                               k: int) -> Dict[str, float]:
+    """Forward FLOPs of one whole speculative iteration for one
+    sequence: k single-token draft proposals (each an incremental decode
+    step of the draft model at its growing context) plus the target's
+    k+1-token verify call. Returns ``{"draft", "verify", "total"}`` —
+    the per-emitted-token cost is ``total / (accepted + 1)``, which is
+    the quantity the speculative step trades against plain decode.
+    """
+    c = int(context_len)
+    draft = sum(gpt_decode_flops_per_token(draft_cfg, c + i)["total"]
+                for i in range(int(k)))
+    verify = gpt_verify_flops(cfg, c, k)["total"]
+    return {"draft": draft, "verify": verify, "total": draft + verify}
 
 
 def mfu(flops_per_sec: float, peak_flops: float = H100_PEAK_BF16_FLOPS,

@@ -1,5 +1,7 @@
 """The port's serving slice on the CPU: its own copies of the bucket
-ladder and the block allocator against the JAX package's, and the
+ladder, the block allocator, the prefix cache and the ``serving:``
+config against the JAX package's; ``forward_paged_logits`` and the
+identity-layer helpers against the JAX functions; and the
 continuous-batching engine's greedy tokens against a greedy loop over
 the JAX package's uncached ``gpt.apply`` on the same (converted) weights,
 in fp32 — where the two frameworks differ only in summation order, far
@@ -8,22 +10,27 @@ below the logit gaps of these prompts.
 Every engine runs as a context manager, so no ``serving-engine`` thread
 outlives its test.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from determined_clone_tpu.config import experiment as jexp
 from determined_clone_tpu.models import gpt as jgpt
 from determined_clone_tpu.serving import bucketing as jbucket
 from determined_clone_tpu.serving import kv_cache as jkv
 from determined_clone_tpu_torch import convert
+from determined_clone_tpu_torch.config import experiment as texp
 from determined_clone_tpu_torch.models import gpt as tgpt
 from determined_clone_tpu_torch.serving import (
     BlockAllocator,
     BucketSpec,
     InferenceEngine,
     KVCacheConfig,
+    PrefixCache,
     ServerOverloaded,
     bucket_for,
     init_kv_pools,
@@ -211,3 +218,234 @@ def test_engine_needs_cuda_unless_cpu_is_asked(monkeypatch, params):
         InferenceEngine(params, TCFG, buckets=BUCKETS, cache=CACHE)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_kv_pools(TCFG, CACHE)
+
+
+def test_engine_warmup_readies_the_ladder_on_the_cpu(params, expected):
+    """On the CPU warmup runs every program of the ladder once (nothing
+    reaches the pools) and counts them; traffic afterwards adds none."""
+    with _engine(params) as eng:
+        assert eng.programs_compiled() == 0
+        assert eng.warmup() == eng.program_budget() == BUCKETS.program_budget
+        assert eng.generate(PROMPTS[0], NEW).tokens == expected[0]
+        assert eng.programs_compiled() == BUCKETS.program_budget
+        calls = eng.program_calls()
+    assert calls["replays"] == 0 and calls["eager"] == \
+        BUCKETS.program_budget + NEW
+
+
+# -- the bucket ladder's speed-feature budget ---------------------------------
+
+@pytest.mark.parametrize("args", [(4, 16), (8, 128), (1, 8), (2, 64)])
+def test_chunk_len_and_extended_budget_match_jax(args):
+    mine, ref = BucketSpec.build(*args), jbucket.BucketSpec.build(*args)
+    for n in (1, 5, 8, 16, 32, 100, 128, 256):
+        if n in ref.prefill_len_buckets:
+            assert mine.validate_chunk_len(n) == ref.validate_chunk_len(n)
+        else:
+            with pytest.raises(ValueError):
+                ref.validate_chunk_len(n)
+            with pytest.raises(ValueError):
+                mine.validate_chunk_len(n)
+    for spec in (False, True):
+        for prefix in (False, True):
+            for tier in (False, True):
+                kw = dict(speculative=spec, prefix_cache=prefix,
+                          kv_store=tier)
+                assert mine.extended_budget(**kw) == \
+                    ref.extended_budget(**kw)
+
+
+# -- allocator refcounts and the prefix cache, scripted on both ---------------
+
+def test_allocator_and_prefix_cache_script_matches_jax():
+    """The same script of allocate, retain, release, match, register,
+    evict and flush on both packages: the same block ids, refcounts,
+    matches and entry counts at every step."""
+    cfg = dict(num_blocks=10, block_size=4)
+    ta = BlockAllocator(KVCacheConfig(**cfg))
+    ja = jkv.BlockAllocator(jkv.KVCacheConfig(**cfg))
+    tc = PrefixCache(KVCacheConfig(**cfg), ta)
+    jc = jkv.PrefixCache(jkv.KVCacheConfig(**cfg), ja)
+
+    def same():
+        assert ta.free_blocks() == ja.free_blocks()
+        assert ta.outstanding() == ja.outstanding()
+        assert [ta.refcount(b) for b in range(10)] == \
+            [ja.refcount(b) for b in range(10)]
+        assert len(tc) == len(jc)
+
+    p1 = list(range(1, 11))                  # 2 full blocks + 2-token tail
+    p2 = p1[:8] + [70, 71, 72]               # shares two full blocks
+    b1, jb1 = ta.allocate(len(p1) + 3), ja.allocate(len(p1) + 3)
+    assert b1 == jb1
+    tc.register(p1, b1), jc.register(p1, jb1)
+    same()
+    for prompt in (p1, p2, p1[:8], [5] + p1[1:], p1[:3]):
+        tm, jm = tc.match(prompt), jc.match(prompt)
+        assert (tm.blocks, tm.shared_len) == (jm.blocks, jm.shared_len)
+        same()
+        ta.release(tm.blocks), ja.release(jm.blocks)
+    b2, jb2 = ta.allocate(len(p2)), ja.allocate(len(p2))
+    assert b2 == jb2
+    tc.register(p2, b2), jc.register(p2, jb2)   # first writer wins
+    ta.retain(b2[:1]), ja.retain(jb2[:1])
+    same()
+    ta.release(b1), ja.release(jb1)
+    ta.release(b2), ja.release(jb2)
+    same()
+    assert tc.evict(8) == jc.evict(8)            # LRU, deepest first
+    same()
+    assert tc.evict(10) == jc.evict(10)
+    same()
+    ta.release(b2[:1]), ja.release(jb2[:1])
+    ta.assert_balanced(0), ja.assert_balanced(0)
+    with pytest.raises(AssertionError):
+        ta.assert_balanced(1)
+    b3 = ta.allocate(8)
+    tc.register(p1[:8], b3)
+    ta.release(b3)
+    assert tc.flush() == 2 and ta.outstanding() == 0
+    assert PrefixCache._chain(b"", p1[:4]) == jkv.PrefixCache._chain(
+        b"", p1[:4])
+    assert PrefixCache._tail_key(b"x", [1, 2]) == \
+        jkv.PrefixCache._tail_key(b"x", [1, 2])
+
+
+# -- the serving: config block ------------------------------------------------
+
+SERVING_GOOD = [
+    {},
+    {"max_batch": 4, "max_prefill_len": 64, "kv_block_size": 8,
+     "kv_blocks": 100, "max_queue_depth": 3, "default_max_new_tokens": 9,
+     "host": "0.0.0.0", "port": 9000},
+    {"prefix_cache": True, "chunk_prefill_len": 16,
+     "speculative": {"enabled": True, "k": 3, "draft_layers": 2,
+                     "draft_d_model": 64, "draft_n_heads": 2,
+                     "draft_d_ff": 256}},
+    {"max_prefill_len": 4, "chunk_prefill_len": 4},
+]
+SERVING_BAD = [
+    [], {"max_batch": 3}, {"max_prefill_len": 0}, {"kv_block_size": 12},
+    {"kv_blocks": -1}, {"max_queue_depth": 0},
+    {"default_max_new_tokens": 0}, {"port": 0}, {"port": 70000},
+    {"chunk_prefill_len": -8}, {"chunk_prefill_len": 5},
+    {"chunk_prefill_len": 256}, {"chunk_prefill_len": 4},
+    {"speculative": []}, {"speculative": {"k": 0}},
+    {"speculative": {"k": 17}}, {"speculative": {"draft_layers": 0}},
+    {"speculative": {"draft_d_model": 10, "draft_n_heads": 4}},
+]
+
+
+@pytest.mark.parametrize("raw", SERVING_GOOD)
+def test_serving_config_parses_as_jax(raw):
+    mine = texp.ServingConfig.from_dict(raw)
+    ref = jexp.ServingConfig.from_dict(raw)
+    assert mine.to_dict() == ref.to_dict()
+    assert dataclasses.asdict(texp.SpeculativeConfig.from_dict(
+        raw.get("speculative", {}))) == dataclasses.asdict(
+        jexp.SpeculativeConfig.from_dict(raw.get("speculative", {})))
+    exp = texp.ExperimentConfig.from_dict({"serving": raw} if raw else {})
+    assert (exp.serving.to_dict() if raw else exp.serving) == \
+        (mine.to_dict() if raw else None)
+
+
+@pytest.mark.parametrize("raw", SERVING_BAD)
+def test_serving_config_refuses_as_jax(raw):
+    with pytest.raises(jexp.ConfigError) as ref:
+        jexp.ServingConfig.from_dict(raw)
+    with pytest.raises(texp.ConfigError) as mine:
+        texp.ServingConfig.from_dict(raw)
+    assert str(mine.value) == str(ref.value)
+
+
+def test_experiment_config_refuses_unknown_serving_keys():
+    for raw, where in [({"max_batc": 4}, "serving.max_batc"),
+                       ({"speculative": {"draught": 1}},
+                        "serving.speculative.draught")]:
+        with pytest.raises(texp.ConfigError, match=f"{where}: unknown"):
+            texp.ExperimentConfig.from_dict({"serving": raw})
+
+
+# -- the verify forward and the identity-layer testbed ------------------------
+
+def _paged_inputs(rng, B, T, lens, start):
+    tok = np.zeros((B, T), np.int32)
+    pos = np.zeros((B, T), np.int32)
+    msk = np.zeros((B, T), bool)
+    for i, n in enumerate(lens):
+        tok[i, :n] = rng.integers(0, TINY["vocab_size"], n)
+        pos[i, :n] = np.arange(start[i], start[i] + n)
+        msk[i, :n] = True
+    return tok, pos, msk
+
+
+def test_forward_paged_logits_matches_jax(jax_params, params):
+    """A prefill, then a k+1 = 4 token verify whose last rows run past
+    the block table (masked): logits at every position within 1e-5
+    relative of the JAX function's, and both pools the same."""
+    cache = dict(num_blocks=12, block_size=8)
+    jk, jv = jkv.init_kv_pools(JCFG, jkv.KVCacheConfig(**cache))
+    tk, tv = init_kv_pools(TCFG, KVCacheConfig(**cache), "cpu")
+    tables = np.array([[3, 7, 0, 0, 0, 0], [5, 1, 9, 2, 4, 6],
+                       [0, 0, 0, 0, 0, 0]], np.int32)
+    rng = np.random.default_rng(3)
+    jfwd = jax.jit(jgpt.forward_paged_logits, static_argnums=1)
+    for T, lens, start in [(16, [11, 16], [0, 0]), (4, [4, 3], [11, 45])]:
+        tok, pos, msk = _paged_inputs(rng, 3, T, lens, start)
+        if T == 4:
+            pos[1, 3] = 48          # masked, one past the table's reach
+        jl, jk, jv = jfwd(jax_params, JCFG,
+                          *(jnp.asarray(a) for a in (tok, pos, msk)),
+                          jk, jv, jnp.asarray(tables))
+        tl, tk2, tv2 = tgpt.forward_paged_logits(
+            params, TCFG, *(torch.from_numpy(a) for a in (tok, pos, msk)),
+            tk, tv, torch.from_numpy(tables))
+        assert tk2 is tk and tv2 is tv and tl.shape == (3, T, 256)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-6)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-6)
+
+
+def test_paged_forward_needs_pools_with_scratch(params):
+    """Masked tokens' K/V go to the scratch block behind each layer; a
+    plain pool has none and is refused before anything is written (its
+    last-but-one layer's "scratch" would be the next layer's block 0)."""
+    plain = torch.zeros((2, 4, 8, 4, 16))
+    plain_v = plain.clone()
+    args = (torch.zeros((1, 2), dtype=torch.long),) * 2 + (
+        torch.tensor([[True, False]]),)
+    with pytest.raises(ValueError, match="init_kv_pools"):
+        tgpt.forward_paged_logits(params, TCFG, *args, plain, plain_v,
+                                  torch.zeros((1, 6), dtype=torch.long))
+    assert not plain.any() and not plain_v.any()
+    # a slice of init_kv_pools' pools that drops layers keeps the layout
+    k, v = init_kv_pools(TCFG, KVCacheConfig(num_blocks=4, block_size=8),
+                         "cpu")
+    with pytest.raises(ValueError, match="init_kv_pools"):
+        tgpt.forward_paged_logits(params, TCFG, *args,
+                                  k.contiguous(), v.contiguous(),
+                                  torch.zeros((1, 6), dtype=torch.long))
+
+
+def test_identity_extension_and_prefix_slice_are_exact(jax_params, params):
+    """Identity layers leave the logits equal bit for bit (and the
+    extended tree equals the JAX helper's); slicing them off gives the
+    original leaves back."""
+    jext, jcfg = jgpt.extend_with_identity_layers(jax_params, JCFG, 2)
+    text, tcfg = tgpt.extend_with_identity_layers(params, TCFG, 2)
+    assert tcfg.n_layers == jcfg.n_layers == 4
+    for (path, a), b in zip(
+            jax.tree_util.tree_leaves_with_path(jext),
+            jax.tree_util.tree_leaves(text)):
+        assert np.array_equal(np.asarray(a), b.numpy()), path
+    x = torch.tensor([PROMPTS[1]])
+    assert torch.equal(tgpt.apply(text, tcfg, x), tgpt.apply(params, TCFG, x))
+    sliced, scfg = tgpt.slice_prefix_layers(text, tcfg, 2)
+    assert scfg.n_layers == 2
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(sliced), jax.tree_util.tree_leaves(params)))
+    assert tgpt.extend_with_identity_layers(params, TCFG, 0)[1] is TCFG
+    for bad in (0, 5):
+        with pytest.raises(ValueError):
+            tgpt.slice_prefix_layers(text, tcfg, bad)
