@@ -119,14 +119,49 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    graphs, capture seconds and memory, then the phase-4 burst cold
    (eager) and warm (graph replays only, counted; the cold tokens), each
    with tokens/s, p50/p99 and the device's busy share, and ``hot_swap``
-   after warmup. No flash launch. Prints the phase's wall time.
+   after warmup. No flash launch. Prints the phase's wall time;
+10. the fleet at full width: ``ServingFleet`` replicas, each configured
+   as phase 9's engines with the prefix cache, 128-token chunked
+   prefill (a 96-token system prompt and a 40-token tail pass the
+   largest prefill bucket) and a host tier over a CAS
+   tier in a temporary directory (``tier_store``), behind the
+   prefix-affinity router. Traffic: 3 system prompts of 96 tokens with
+   8 requests each (own 8–40-token tails, 32 new tokens), the first
+   request of each system prompt alone, then the rest at once. (a) in
+   bf16 on phase 4's weights at 1 and 3 replicas: every request held to
+   the phase-4 rule per system prompt, tokens/s, p50/p99 and the busy
+   share of a profiled second run of the same shape; at 3 replicas each
+   system prompt served mostly by one replica (prefix hits per replica
+   printed); in fp32 on ``branch_scaled`` weights every request's
+   tokens equal one engine's (``reference_tokens``); (b) in bf16 and in
+   fp32: a replica's spilled blocks promoted into another replica's
+   pool, equal bit for bit; (c) ``replace_replica`` on a replica holding
+   the three system prompts (the others stopped): equal tokens,
+   ``kv_host_hit`` at least the 18 shared blocks, the time to first
+   token of a promoted prefix against a cold prompt; again with a host
+   budget below one block, the hits from CAS; (d) ``scale_down`` in the
+   middle of the traffic: nothing dropped, every token right; (e) a
+   blue-green ``rollout`` to ``branch_scaled`` seed-1 weights under the
+   traffic: each request exactly one version's, none failed, the canary
+   passed; (f) ``scale_up`` (warmup: graph capture) with the traffic
+   sent to the other replicas as the warmup starts: every graph
+   captured, programs of the other replicas run during the capture, the
+   tokens unchanged, the warmup's seconds beside the first replica's
+   (captured alone); (g) ``FleetHTTPServer``: ``/v1/generate`` (phase-4 rule),
+   ``/v1/fleet``, ``/v1/scale``, ``/v1/rollout`` of a checkpoint, and
+   the replicas' ``kv_tier_*`` counters in ``/metrics`` equal
+   ``kv_stats()``; (h) six chaos scenarios at chaos's own configuration
+   (``serving/chaos.py``) pass on the card; (i) no flash launch. Prints
+   memory after each scale_up and every rate beside the card's name and
+   power limit.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
 that of phase 3, the uncached forward (the engine's paged forward
 attends with plain ``mha``, as in the JAX package); ``train_launches``
 is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
-two legs; phases 8 and 9 launch none (``serving_launches``). The last
+two legs; phases 8, 9 and 10 launch none (``serving_launches``,
+``fleet_launches``). The last
 three lines are the kernels' JSON line, the card's name and power limit,
 and the result; the line before them gives the whole script's wall
 time. Details go to ``smoke_out/chip_smoke.json``. Exits non-zero,
@@ -2319,6 +2354,777 @@ def phase_serving(params, cfg) -> dict:
             "checks": checks}
 
 
+# -- phase 10: the fleet ------------------------------------------------------
+
+FLEET = {"replicas": 3, "systems": 3, "per_system": 8, "system": 96,
+         "tails": (8, 40), "new": 32, "seed": 100}
+# chaos's own scenarios, run on the card (torn_warmstart waits with the
+# XLA executable cache)
+CHAOS_SCENARIOS = ("kill_replica_mid_decode", "wedged_scheduler",
+                   "double_fault", "poison_pill", "kv_warm_failover",
+                   "deadline_storm")
+
+
+def fleet_traffic(vocab, seed):
+    """(a)'s requests: ``FLEET["systems"]`` system prompts of
+    ``FLEET["system"]`` tokens with ``FLEET["per_system"]`` requests each,
+    every request with its own 8–40-token tail; interleaved by system,
+    so the first ``systems`` requests open one system prompt each.
+    Returns (prompts, system index per prompt)."""
+    import numpy as np
+
+    n, per = FLEET["systems"], FLEET["per_system"]
+    systems = prompts_of([FLEET["system"]] * n, vocab, seed)
+    lengths = np.linspace(*FLEET["tails"], per).astype(int).tolist()
+    tails = prompts_of(lengths * n, vocab, seed + 1)
+    prompts, groups = [], []
+    for j in range(per):
+        for s in range(n):
+            prompts.append(systems[s] + tails[s * per + j])
+            groups.append(s)
+    return prompts, groups
+
+
+def tier_store(tmp, host_budget=256 << 20):
+    """A host tier over a CAS tier in ``tmp`` (a fresh directory)."""
+    from determined_clone_tpu_torch.serving import KVBlockStore
+    from determined_clone_tpu_torch.storage import SharedFSStorageManager
+    from determined_clone_tpu_torch.storage.cas import KVBlobStore
+
+    return KVBlockStore(budget_bytes=host_budget, blob_store=KVBlobStore(
+        SharedFSStorageManager(tmp)))
+
+
+def device_memory():
+    import torch
+
+    return {"allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+
+
+def make_fleet(params, cfg, n, store, lines=None, **kw):
+    """A ServingFleet of ``n`` replicas, each as phase 9's engines are
+    configured (``serving_config``) with the prefix cache and the tiers
+    of ``store``, and phase 9's chunked prefill (a prompt may be longer
+    than the largest prefill bucket); device memory after each
+    scale_up."""
+    import math
+
+    from determined_clone_tpu_torch.serving import (
+        BucketSpec,
+        KVCacheConfig,
+        ServingFleet,
+    )
+
+    scfg = serving_config(prefix_cache=True, chunk_prefill_len=SERVE["chunk"])
+    buckets = BucketSpec.build(scfg.max_batch, min(scfg.max_prefill_len,
+                                                   cfg.max_seq_len))
+    blocks = scfg.kv_blocks or scfg.max_batch * max(
+        1, math.ceil(cfg.max_seq_len / scfg.kv_block_size))
+    fleet = ServingFleet(params, cfg, buckets=buckets,
+                         cache=KVCacheConfig(num_blocks=blocks,
+                                             block_size=scfg.kv_block_size),
+                         max_queue_depth=scfg.max_queue_depth,
+                         prefix_cache=True,
+                         chunk_prefill_len=scfg.chunk_prefill_len,
+                         kv_store=store, device="cuda",
+                         **kw)
+    mem = []
+    for _ in range(n):
+        fleet.scale_up(1)
+        mem.append(device_memory())
+    if lines is not None:
+        lines.append(mem)
+    return fleet
+
+
+def fleet_requests(fleet, prompts, new, tag, timeout=900):
+    """Every prompt through the front door (``handle_request``) at once,
+    one thread each; (results, replica ids, wall s, front-door latencies)."""
+    import threading
+
+    out = [None] * len(prompts)
+
+    def one(i):
+        t0 = time.monotonic()
+        try:
+            res, handle = fleet.handle_request(
+                prompts[i], new, request_id=f"{tag}-{i}", timeout=timeout)
+            out[i] = (res, handle.replica_id, time.monotonic() - t0)
+        except Exception as exc:  # noqa: BLE001 — checked by the caller
+            out[i] = (exc, None, time.monotonic() - t0)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 60)
+    wall = time.monotonic() - t0
+    failed = [f"{tag}-{i}: {o[0]!r}" for i, o in enumerate(out)
+              if o is None or isinstance(o[0], BaseException)]
+    if failed:
+        raise AssertionError(f"fleet requests failed: {failed[:4]}")
+    return ([o[0] for o in out], [o[1] for o in out], wall,
+            [o[2] for o in out])
+
+
+def fleet_run(fleet, prompts, new, tag):
+    """(a)'s traffic: the first request of each system prompt one after
+    another (each then rests on one replica), the rest at once. Returns
+    results, replica ids, tokens/s, p50/p99 ms over all requests, and
+    the wall s."""
+    import numpy as np
+
+    n = FLEET["systems"]
+    t0 = time.monotonic()
+    first = [fleet_requests(fleet, [p], new, f"{tag}-open{i}")
+             for i, p in enumerate(prompts[:n])]
+    rest = fleet_requests(fleet, prompts[n:], new, tag)
+    wall = time.monotonic() - t0
+    results = [f[0][0] for f in first] + rest[0]
+    reps = [f[1][0] for f in first] + rest[1]
+    lat = [f[3][0] for f in first] + rest[3]
+    return {"results": results, "replicas": reps, "wall_s": wall,
+            "tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def affinity_of(groups, reps):
+    """Per system prompt, the replicas that served its requests, and
+    whether one replica served most of them."""
+    import collections
+
+    per = {}
+    for g, r in zip(groups, reps):
+        per.setdefault(g, collections.Counter())[r] += 1
+    share = {g: c.most_common(1)[0][1] / sum(c.values())
+             for g, c in per.items()}
+    return {g: dict(c) for g, c in per.items()}, share
+
+
+def fleet_lane(params, cfg, n, lines, tmp, tag) -> dict:
+    """(a) at one width: a fleet of ``n`` replicas serving the traffic
+    once timed and once, with other tokens of the same shape, under the
+    profiler (busy share = its kernel time over the timed wall)."""
+    prompts, groups = fleet_traffic(cfg.vocab_size, FLEET["seed"])
+    other, _ = fleet_traffic(cfg.vocab_size, FLEET["seed"] + 50)
+    mem = []
+    fleet = make_fleet(params, cfg, n, tier_store(tmp), mem)
+    fleet.handle_request([1, 2, 3], 2)  # cuBLAS handles, allocator
+    run = fleet_run(fleet, prompts, FLEET["new"], f"{tag}-a")
+    prof = profile_window(
+        lambda: fleet_run(fleet, other, FLEET["new"], f"{tag}-b"),
+        f"fleet traffic, {tag}", lines)
+    busy = prof["device_ms"] / 1e3 / run["wall_s"]
+    run.update(busy_share=busy, memory=mem, prompts=prompts, groups=groups)
+    return fleet, run
+
+
+def equal_bits(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.flatten().view(torch.uint8),
+                       b.flatten().view(torch.uint8))
+
+
+def tier_round_trip(fleet, prompt) -> dict:
+    """(b): the replica holding ``prompt``'s first block spills every
+    resident block (``flush_kv_to_tier``); another replica, its resident
+    blocks dropped, serves ``prompt`` by promoting them into its own
+    pool. Every promoted block's K and V equal the source's bit for
+    bit."""
+    from determined_clone_tpu_torch.serving.kv_store import prompt_chain_keys
+
+    bs = fleet.cache.block_size
+    keys = [bytes.fromhex(k) for k in prompt_chain_keys(
+        prompt, bs, len(prompt) // bs)]
+    src = dst = None
+    for rep in fleet.replicas():
+        resident = {k for k, _b, _d in rep.engine._prefix.entries()}
+        if src is None and keys[0] in resident:
+            src = rep
+        elif dst is None:
+            dst = rep
+    for rep in (src, dst):
+        rep.engine.wait_idle()
+    spilled = src.engine.flush_kv_to_tier()
+    dst.engine.flush_prefix_cache()
+    before = dst.engine.stats()
+    dst.submit(prompt, 1).result(timeout=900)
+    dst.engine.wait_idle()
+    after = dst.engine.stats()
+    src_blocks = {k: b for k, b, _d in src.engine._prefix.entries()}
+    dst_blocks = {k: b for k, b, _d in dst.engine._prefix.entries()}
+    moved = [k for k in keys if k in src_blocks and k in dst_blocks]
+    same = all(
+        equal_bits(getattr(src.engine, pool)[:, src_blocks[k]],
+                   getattr(dst.engine, pool)[:, dst_blocks[k]])
+        for k in moved for pool in ("_k_pool", "_v_pool"))
+    block_bytes = 2 * src.engine._k_pool[:, 0].nbytes
+    return {"src": src.replica_id, "dst": dst.replica_id,
+            "spilled": spilled,
+            "promoted": after.kv_promoted_blocks - before.kv_promoted_blocks,
+            "host_hits": after.kv_host_hit_blocks
+            - before.kv_host_hit_blocks,
+            "moved": len(moved), "blocks": len(keys), "bit_equal": same,
+            "block_bytes": block_bytes,
+            "pairs": [(src_blocks[k], dst_blocks[k]) for k in moved]}
+
+
+def fleet_kv_counters(fleet):
+    """The replicas' kv_tier_* counters, summed."""
+    tot = {"host": 0, "cas": 0, "miss": 0, "promoted": 0, "spilled": 0}
+    for rep in fleet.replicas():
+        st = rep.engine.stats()
+        tot["host"] += st.kv_host_hit_blocks
+        tot["cas"] += st.kv_cas_hit_blocks
+        tot["miss"] += st.kv_miss_blocks
+        tot["promoted"] += st.kv_promoted_blocks
+        tot["spilled"] += st.kv_spilled_blocks
+    return tot
+
+
+def fleet_http(fleet, params, cfg, prompt, tmp) -> dict:
+    """(g): FleetHTTPServer over ``fleet``: /v1/generate, /metrics (the
+    replicas' KV counters summed equal kv_stats()), /v1/fleet,
+    /v1/scale to one replica fewer, /v1/rollout of a checkpoint of
+    ``params`` written by ``save_pytree``."""
+    import urllib.request
+
+    from determined_clone_tpu_torch.core._serialization import save_pytree
+    from determined_clone_tpu_torch.serving.http import (
+        FleetHTTPServer,
+        generate_over_http,
+    )
+    from determined_clone_tpu_torch.telemetry.metrics import (
+        parse_prometheus_text,
+    )
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=600) as r:
+            return r.status, r.read().decode()
+
+    def post(url, body):
+        req = urllib.request.Request(
+            url, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, json.loads(r.read().decode())
+
+    ckpt = os.path.join(tmp, "ckpt")
+    save_pytree(ckpt, params)
+    n0 = len(fleet.replica_ids())
+    with FleetHTTPServer(fleet) as srv:
+        gen = generate_over_http(srv.url, prompt, FLEET["new"], timeout=900)
+        for rep in fleet.replicas():
+            rep.engine.wait_idle()
+        code_m, text = get(f"{srv.url}/metrics")
+        kv = fleet.kv_stats()
+        summed = fleet_kv_counters(fleet)
+        sums = {}
+        for name, labels, v in parse_prometheus_text(text)["samples"]:
+            if name.startswith("kv_tier_") and str(
+                    labels.get("component", "")).startswith(
+                        "serving_replica_"):
+                sums[name] = sums.get(name, 0.0) + v
+        code_f, view = get(f"{srv.url}/v1/fleet")
+        view = json.loads(view)
+        code_s, scaled = post(f"{srv.url}/v1/scale", {"replicas": n0 - 1})
+        t0 = time.monotonic()
+        code_r, report = post(f"{srv.url}/v1/rollout", {"checkpoint": ckpt})
+        rollout_s = time.monotonic() - t0
+        after = generate_over_http(srv.url, prompt, FLEET["new"],
+                                   timeout=900)
+    metrics_ok = (
+        code_m == 200
+        and sums.get("kv_tier_host_hit_blocks_total") == kv["host_hits"]
+        == summed["host"]
+        and sums.get("kv_tier_cas_hit_blocks_total") == kv["cas_hits"]
+        == summed["cas"]
+        and sums.get("kv_tier_miss_blocks_total") == kv["misses"]
+        == summed["miss"]
+        and sums.get("kv_tier_spilled_blocks_total")
+        == kv["puts"] + kv["duplicate_puts"] == summed["spilled"]
+        and sums.get("kv_tier_promoted_blocks_total") == summed["promoted"])
+    return {"generate": gen, "after_rollout": after, "metrics_ok": metrics_ok,
+            "sums": sums, "kv": {k: kv[k] for k in (
+                "host_hits", "cas_hits", "misses", "puts", "duplicate_puts",
+                "entries", "bytes")},
+            "fleet_ok": code_f == 200 and view["name"] == fleet.name
+            and view["kv_tier"] is not None
+            and len(view["replicas"]) == n0,
+            "scale_ok": code_s == 200 and len(scaled["replicas"]) == n0 - 1,
+            "rollout_ok": code_r == 200 and len(report["order"]) == n0 - 1
+            and len(report["probe_output"]) == 8,
+            "rollout_s": rollout_s}
+
+
+def drain_mid_burst(fleet, prompts, new, tag) -> dict:
+    """(d): the traffic at once; once the first request is running,
+    ``scale_down(1)`` drains the newest replica (it finishes what it
+    accepted, takes nothing new) while the rest is served."""
+    import threading
+
+    box = {}
+
+    def shrink():
+        while not any(rep.engine.stats().tokens_generated
+                      > box.get("t0", {}).get(rep.replica_id, 0)
+                      for rep in fleet.replicas()):
+            time.sleep(0.001)
+        t0 = time.monotonic()
+        box["removed"] = fleet.scale_down(1)
+        box["drain_s"] = time.monotonic() - t0
+
+    box["t0"] = {rep.replica_id: rep.engine.stats().tokens_generated
+                 for rep in fleet.replicas()}
+    t = threading.Thread(target=shrink, daemon=True)
+    t.start()
+    res = fleet_requests(fleet, prompts, new, tag)
+    t.join(900)
+    return {"results": res[0], "replicas": res[1], **box}
+
+
+def capture_beside_traffic(fleet, prompts, new, tag) -> dict:
+    """(f): ``scale_up(1)`` — engine build and warmup, which captures the
+    new replica's graphs — while the traffic runs over and over through
+    the front door, from before the scale_up starts until after it ends
+    (the case the autoscaler meets). The programs the other replicas ran
+    during the warmup are counted (the capture really ran beside their
+    replays), and the warmup's seconds are set beside those of the first
+    replica's, captured alone. Then the new replica alone serves the
+    traffic through its own ``submit``, so its graphs are held to the
+    reference."""
+    import threading
+
+    from determined_clone_tpu_torch.serving import engine as eng_mod
+
+    others = fleet.replicas()
+
+    def calls():
+        return sum(sum(rep.engine.program_calls().values())
+                   for rep in others)
+
+    windows = []
+    orig = eng_mod.InferenceEngine.warmup
+
+    def watched(self):
+        c0, t0 = calls(), time.monotonic()
+        n = orig(self)
+        windows.append({"s": time.monotonic() - t0,
+                        "calls_beside": calls() - c0, "programs": n,
+                        "budget": self.program_budget()})
+        return n
+
+    stop = threading.Event()
+    waves = []  # (start, end, results or the exception)
+
+    def traffic():
+        while not stop.is_set():
+            t0 = time.monotonic()
+            try:
+                res = fleet_requests(fleet, prompts, new,
+                                     f"{tag}-{len(waves)}")[0]
+            except Exception as exc:  # noqa: BLE001 — checked by the caller
+                res = exc
+            waves.append((t0, time.monotonic(), res))
+            if isinstance(res, BaseException):
+                return
+
+    alone = others[0].registry.histogram(
+        "serving_warmup_seconds",
+        "whole program ladder readied (graphs captured) at startup")
+    t = threading.Thread(target=traffic, daemon=True)
+    c0 = fleet.stats().tokens_generated
+    eng_mod.InferenceEngine.warmup = watched
+    try:
+        t.start()
+        while fleet.stats().tokens_generated == c0 and t.is_alive():
+            time.sleep(0.001)
+        t0 = time.monotonic()
+        added = fleet.scale_up(1)
+        t1 = time.monotonic()
+    finally:
+        stop.set()
+        eng_mod.InferenceEngine.warmup = orig
+    t.join(1800)
+    unbroken = (bool(waves) and not t.is_alive() and waves[0][0] <= t0
+                and waves[-1][1] >= t1
+                and all(b[0] >= a[1] for a, b in zip(waves, waves[1:]))
+                and all(b[0] - a[1] < 1.0 for a, b in zip(waves, waves[1:])))
+    rep = next(r for r in fleet.replicas() if r.replica_id in added)
+    handles = [rep.submit(p, new, request_id=f"{tag}-solo-{i}")
+               for i, p in enumerate(prompts)]
+    solo = [h.result(timeout=900) for h in handles]
+    return {"added": added, "windows": windows, "scale_up_s": t1 - t0,
+            "waves": [w[2] for w in waves], "unbroken": unbroken,
+            "new_replica": rep.replica_id, "solo": solo,
+            "warmup_alone_s": alone.sum / max(alone.count, 1)}
+
+
+def warm_replacement(fleet, prompts, groups, new, tag, cold_prompt) -> dict:
+    """(c): one replica made to hold every system prompt (one request of
+    each sent to it directly), the others stopped through the drain
+    protocol, then ``replace_replica`` on it (flush to the tiers, warmup
+    of the replacement). The replacement serves one system prompt's
+    request alone (its blocks promoted: time to first token) and a cold
+    prompt of the same length, then the whole traffic."""
+    n = FLEET["systems"]
+    keep = fleet.replicas()[0]
+    for p in prompts[:n]:
+        keep.submit(p, 1).result(timeout=900)
+    for rep in fleet.replicas()[1:]:
+        fleet.stop_replica(rep.replica_id)
+    keep.engine.wait_idle()
+    t0 = time.monotonic()
+    new_ids = fleet.replace_replica(keep.replica_id, reason="replace")
+    replace_s = time.monotonic() - t0
+    rep = fleet.replicas()[0]
+
+    def ttft(p):
+        r = rep.submit(p, new).result(timeout=900)
+        return r, r.total_s - r.decode_s
+
+    promoted, ttft_promoted = ttft(prompts[0])
+    cold, ttft_cold = ttft(cold_prompt)
+    run = fleet_requests(fleet, prompts, new, tag)
+    st = rep.engine.stats()
+    return {"replacement": new_ids, "replace_s": replace_s,
+            "results": run[0], "ttft_promoted_ms": ttft_promoted * 1e3,
+            "ttft_cold_ms": ttft_cold * 1e3,
+            "first": promoted, "cold": cold,
+            "kv": {"host": st.kv_host_hit_blocks, "cas": st.kv_cas_hit_blocks,
+                   "miss": st.kv_miss_blocks,
+                   "promoted": st.kv_promoted_blocks},
+            "incident": fleet.last_incident()}
+
+
+def rollout_under_load(fleet, prompts, new, params2, tag) -> dict:
+    """(e): ``rollout(params2)`` (drain and swap replica by replica,
+    canary first) while the traffic runs over and over, from before the
+    rollout starts until after it ends."""
+    import threading
+
+    box = {}
+    stop = threading.Event()
+    waves = []
+
+    def traffic():
+        while not stop.is_set():
+            waves.append(fleet_requests(fleet, prompts, new,
+                                        f"{tag}-{len(waves)}")[0])
+
+    t = threading.Thread(target=traffic, daemon=True)
+    c0 = fleet.stats().tokens_generated
+    t.start()
+    while fleet.stats().tokens_generated == c0:
+        time.sleep(0.001)
+    t0 = time.monotonic()
+    try:
+        box["report"] = fleet.rollout(params2, drain_timeout=900)
+    except Exception as exc:  # noqa: BLE001 — checked by the caller
+        box["error"] = repr(exc)
+    box["s"] = time.monotonic() - t0
+    n = len(waves)
+    while len(waves) <= n and t.is_alive():  # one wave wholly after it
+        time.sleep(0.01)
+    stop.set()
+    t.join(1800)
+    return {"results": [r for w in waves for r in w], **box}
+
+
+def reference_tokens(params, cfg, prompts, new, params2=None):
+    """One engine's greedy tokens for every prompt (and, with
+    ``params2``, after hot_swap to them): the fleet's references."""
+    from determined_clone_tpu_torch.serving import InferenceEngine
+
+    scfg = serving_config(prefix_cache=True, chunk_prefill_len=SERVE["chunk"])
+    out = []
+    with InferenceEngine.from_serving_config(params, cfg, scfg,
+                                             device="cuda") as eng:
+        eng.warmup()
+        for version in ([params] if params2 is None else [params, params2]):
+            if version is not params:
+                eng.hot_swap(version)
+            hs = [eng.submit(p, new) for p in prompts]
+            out.append([h.result(timeout=900).tokens for h in hs])
+    return out
+
+
+def phase_fleet(params, cfg) -> dict:
+    """Phase 10: the fleet at ``cfg``'s width, each check failing the
+    run; the flash kernel's launch count set to 0 before and read after
+    (the paged forward attends through ``mha``)."""
+    import tempfile
+
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.serving.chaos import run_scenarios
+
+    new = FLEET["new"]
+    params2 = gpt.init(torch.Generator(device="cuda").manual_seed(1), cfg,
+                       device="cuda")
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    scaled, scaled2 = branch_scaled(params), branch_scaled(params2)
+    smi = card_line()
+    lines: list = []
+    checks = {}
+    out = {}
+    flash_attention.launches = 0
+    t_phase = time.monotonic()
+    parts_s = {}
+    last = [t_phase]
+
+    def mark(name):
+        now = time.monotonic()
+        parts_s[name] = round(now - last[0], 2)
+        last[0] = now
+
+    with tempfile.TemporaryDirectory(prefix="fleet-") as tmp, \
+            torch.no_grad():
+        # (a) bf16, fresh weights: 1 and 3 replicas on the same traffic
+        lanes = {}
+        for n in (1, FLEET["replicas"]):
+            fleet, run = fleet_lane(params, cfg, n, lines,
+                                    os.path.join(tmp, f"bf16-{n}"),
+                                    f"bf16 x{n}")
+            pins = [check_greedy(params, cfg,
+                                 [p for p, g in zip(run["prompts"],
+                                                    run["groups"]) if g == s],
+                                 [r for r, g in zip(run["results"],
+                                                    run["groups"]) if g == s],
+                                 **pin_rule(cfg))
+                    for s in range(FLEET["systems"])]
+            run["pins"] = pins
+            lanes[n] = run
+            checks[f"fleet (a) bf16 x{n}: every request follows the greedy "
+                   f"loop (phase-4 rule, per system prompt)"] = all(
+                pinned(pin, [r for r, g in zip(run["results"], run["groups"])
+                             if g == s]) for s, pin in enumerate(pins))
+            if n == 1:
+                fleet.close()
+                mark("bf16 x1")
+                continue
+            per, share = affinity_of(run["groups"], run["replicas"])
+            run["affinity"], run["affinity_share"] = per, share
+            run["prefix_hits"] = {
+                rep.replica_id: rep.engine.stats().prefix_hit_blocks
+                for rep in fleet.replicas()}
+            checks["fleet (a) bf16: each system prompt served mostly by "
+                   "one replica"] = all(v > 0.5 for v in share.values())
+            rt = tier_round_trip(fleet, run["prompts"][0])
+            out["round_trip_bf16"] = rt
+            checks["fleet (b) bf16: a spilled block promoted into another "
+                   "replica's pool is equal bit for bit"] = (
+                rt["src"] != rt["dst"] and rt["bit_equal"]
+                and rt["moved"] == rt["blocks"] == rt["promoted"]
+                == rt["host_hits"] > 0)
+            http = fleet_http(fleet, params, cfg, run["prompts"][1],
+                              os.path.join(tmp, "http"))
+            hpin = check_greedy(params, cfg, [run["prompts"][1]] * 2, [
+                _Tok(http["generate"]), _Tok(http["after_rollout"])],
+                **pin_rule(cfg))
+            out["http"] = http
+            checks["fleet (g) http: /v1/generate (phase-4 rule, before and "
+                   "after /v1/rollout), /v1/fleet, /v1/scale, /v1/rollout"] = (
+                pinned(hpin, [_Tok(http["generate"]),
+                              _Tok(http["after_rollout"])])
+                and http["fleet_ok"] and http["scale_ok"]
+                and http["rollout_ok"])
+            checks["fleet (g) http: the KV counters in /metrics equal "
+                   "kv_stats()"] = http["metrics_ok"]
+            fleet.close()
+            mark(f"bf16 x{n}")
+        out["bf16"] = {n: {k: v for k, v in r.items()
+                           if k not in ("results", "prompts", "groups")}
+                       for n, r in lanes.items()}
+
+        # fp32 on branch_scaled weights: tokens depend on the context
+        prompts, groups = fleet_traffic(cfg.vocab_size, FLEET["seed"])
+        ref, ref2 = reference_tokens(scaled, cfg32, prompts, new, scaled2)
+        checks["fleet: the two versions' references differ"] = all(
+            a != b for a, b in zip(ref, ref2))
+        mark("fp32 references")
+        mem = []
+        fleet = make_fleet(scaled, cfg32, FLEET["replicas"],
+                           tier_store(os.path.join(tmp, "fp32")), mem)
+        run = fleet_run(fleet, prompts, new, "fp32-a")
+        per, share = affinity_of(groups, run["replicas"])
+        out["fp32_a"] = {"tokens_per_s": run["tokens_per_s"],
+                         "p50_ms": run["p50_ms"], "p99_ms": run["p99_ms"],
+                         "affinity": per, "memory": mem}
+        checks["fleet (a) fp32 scaled: every request's tokens equal one "
+               "engine's"] = [r.tokens for r in run["results"]] == ref
+        rt = tier_round_trip(fleet, prompts[0])
+        out["round_trip_fp32"] = rt
+        checks["fleet (b) fp32: a spilled block promoted into another "
+               "replica's pool is equal bit for bit"] = (
+            rt["src"] != rt["dst"] and rt["bit_equal"]
+            and rt["moved"] == rt["blocks"] == rt["promoted"] > 0)
+        mark("fp32 (a), (b)")
+        d = drain_mid_burst(fleet, prompts, new, "fp32-d")
+        out["drain"] = {"removed": d["removed"], "drain_s": d["drain_s"]}
+        checks["fleet (d) drain: scale_down mid-burst drops nothing, every "
+               "token right"] = (
+            [r.tokens for r in d["results"]] == ref
+            and len(d["removed"]) == 1
+            and len(fleet.replica_ids()) == FLEET["replicas"] - 1)
+        mark("(d)")
+        f = capture_beside_traffic(fleet, prompts, new, "fp32-f")
+        waves = f["waves"]
+        out["capture"] = {"windows": f["windows"],
+                          "scale_up_s": f["scale_up_s"],
+                          "waves": len(waves), "unbroken": f["unbroken"],
+                          "warmup_alone_s": f["warmup_alone_s"],
+                          "memory": device_memory()}
+        checks["fleet (f) capture: scale_up's warmup captured every graph "
+               "while the other replicas served traffic that never "
+               "paused"] = (
+            len(f["added"]) == 1 and len(f["windows"]) == 1
+            and f["windows"][0]["programs"] == f["windows"][0]["budget"]
+            and f["windows"][0]["calls_beside"] > 0 and f["unbroken"])
+        checks["fleet (f) capture: the traffic's tokens are unchanged"] = (
+            all(not isinstance(w, BaseException)
+                and [r.tokens for r in w] == ref for w in waves))
+        checks["fleet (f) capture: the new replica's graphs serve every "
+               "request's tokens alone"] = (
+            [r.tokens for r in f["solo"]] == ref)
+        mark("(f)")
+        cold = prompts_of([len(prompts[0])], cfg.vocab_size, 777)[0]
+        c = warm_replacement(fleet, prompts, groups, new, "fp32-c", cold)
+        shared = FLEET["systems"] * (FLEET["system"] // fleet.cache.block_size)
+        out["replace_host"] = {k: c[k] for k in (
+            "replacement", "replace_s", "ttft_promoted_ms", "ttft_cold_ms",
+            "kv")}
+        checks["fleet (c) replacement: equal tokens, kv_host_hit >= the "
+               "shared blocks"] = (
+            [r.tokens for r in c["results"]] == ref
+            and c["first"].tokens == ref[0] and c["kv"]["host"] >= shared)
+        mark("(c) host")
+        fleet.scale_up(FLEET["replicas"] - 1)
+        e = rollout_under_load(fleet, prompts, new, scaled2, "fp32-e")
+        toks = [r.tokens for r in e["results"]]
+        refs = (ref * len(toks))[:len(toks)], (ref2 * len(toks))[:len(toks)]
+        one = [(t == a) != (t == b) for t, a, b in zip(toks, *refs)]
+        out["rollout"] = {"s": e.get("s"), "error": e.get("error"),
+                          "requests": len(toks),
+                          "old": sum(t == a for t, a in zip(toks, refs[0])),
+                          "new": sum(t == b for t, b in zip(toks, refs[1]))}
+        checks["fleet (e) rollout under load: each request is exactly one "
+               "version's (both seen), none failed, the canary passed"] = (
+            all(one) and out["rollout"]["old"] > 0
+            and out["rollout"]["new"] > 0 and "report" in e
+            and "error" not in e)
+        fleet.close()
+        mark("(e)")
+
+        # (c) again with a host budget below one block: hits from CAS
+        fleet = make_fleet(scaled, cfg32, 1, tier_store(
+            os.path.join(tmp, "cas"), host_budget=rt["block_bytes"] // 2))
+        fleet_run(fleet, prompts, new, "cas-a")
+        c2 = warm_replacement(fleet, prompts, groups, new, "cas-c", cold)
+        out["replace_cas"] = {k: c2[k] for k in (
+            "replacement", "replace_s", "ttft_promoted_ms", "ttft_cold_ms",
+            "kv")}
+        checks["fleet (c) replacement, host budget below one block: equal "
+               "tokens, the hits from CAS"] = (
+            [r.tokens for r in c2["results"]] == ref
+            and c2["kv"]["cas"] >= shared and c2["kv"]["host"] == 0)
+        fleet.close()
+        mark("(c) cas")
+
+    # (h) chaos at its own configuration
+    t0 = time.monotonic()
+    chaos = run_scenarios(CHAOS_SCENARIOS, device="cuda")
+    out["chaos"] = {r.scenario: {"passed": r.passed,
+                                 "s": round(r.duration_s, 3),
+                                 "mttr_max_s": round(r.mttr_max_s, 3),
+                                 "failed": [c.name for c in r.checks
+                                            if not c.ok]}
+                    for r in chaos}
+    out["chaos_s"] = time.monotonic() - t0
+    mark("(h) chaos")
+    for r in chaos:
+        checks[f"fleet (h) chaos: {r.scenario}"] = r.passed
+    launches = flash_attention.launches
+    checks["fleet (i) no flash launch in phase 10"] = launches == 0
+    wall = time.monotonic() - t_phase
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_profile.txt"), "a") as fh:
+        fh.write("\n" + "\n".join(str(x) for x in lines))
+
+    for n, r in out["bf16"].items():
+        busy = (f"{r['busy_share']:.3f}" if r["busy_share"] is not None
+                else "not measured")
+        log(f"[fleet] (a) bf16 x{n}: {r['tokens_per_s']:.1f} tokens/s, p50 "
+            f"{r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, busy share "
+            f"{busy}; memory after each scale_up {r['memory']}; {smi}")
+    r3 = out["bf16"][FLEET["replicas"]]
+    log(f"[fleet] (a) bf16 affinity (system -> replica: requests) "
+        f"{r3['affinity']}; prefix hit blocks per replica "
+        f"{r3['prefix_hits']}")
+    log(f"[fleet] (a) fp32 scaled x{FLEET['replicas']}: "
+        f"{out['fp32_a']['tokens_per_s']:.1f} tokens/s, p50 "
+        f"{out['fp32_a']['p50_ms']:.1f} ms, p99 {out['fp32_a']['p99_ms']:.1f}"
+        f" ms; affinity {out['fp32_a']['affinity']}; {smi}")
+    for lane in ("round_trip_bf16", "round_trip_fp32"):
+        rt = out[lane]
+        log(f"[fleet] (b) {lane}: {rt['src']} spilled {rt['spilled']} blocks "
+            f"({rt['spilled'] * rt['block_bytes']} bytes), {rt['dst']} "
+            f"promoted {rt['promoted']} ({rt['promoted'] * rt['block_bytes']}"
+            f" bytes), block pairs {rt['pairs'][:3]}..., bit-equal "
+            f"{rt['bit_equal']}")
+    for lane in ("replace_host", "replace_cas"):
+        c = out[lane]
+        log(f"[fleet] (c) {lane}: replace {c['replace_s']:.2f} s; time to "
+            f"first token, promoted prefix {c['ttft_promoted_ms']:.1f} ms "
+            f"vs cold {c['ttft_cold_ms']:.1f} ms; kv {c['kv']}; {smi}")
+    log(f"[fleet] (d) drain {out['drain']['drain_s']:.2f} s of "
+        f"{out['drain']['removed']}; (e) rollout {out['rollout']}; {smi}")
+    cap = out["capture"]
+    log(f"[fleet] (f) warmup beside unbroken traffic {cap['windows']} "
+        f"(scale_up {cap['scale_up_s']:.2f} s, {cap['waves']} waves of the "
+        f"traffic); the first replica's warmup alone "
+        f"{cap['warmup_alone_s']:.2f} s; memory {cap['memory']}; {smi}")
+    log(f"[fleet] (f) open: a scale_up under unbroken traffic takes "
+        f"{cap['scale_up_s']:.2f} s against a warmup of "
+        f"{cap['warmup_alone_s']:.2f} s alone; not bounded by this script "
+        f"(where the capture thread waits is not measured)")
+    log(f"[fleet] (g) http /metrics kv sums {out['http']['sums']}; "
+        f"kv_stats {out['http']['kv']}; rollout over http "
+        f"{out['http']['rollout_s']:.2f} s")
+    log(f"[fleet] (h) chaos {out['chaos']} in {out['chaos_s']:.1f} s")
+    for name, ok in checks.items():
+        log(f"[fleet] check {'ok' if ok else 'FAILED'}: {name}")
+    log(f"[fleet] phase 10 wall {wall:.1f} s ({parts_s}); flash launches "
+        f"{launches}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 10 checks failed: {failed}")
+    return {**out, "flash_launches": launches, "wall_s": wall,
+            "parts_s": parts_s, "checks": checks}
+
+
+class _Tok:
+    """A /v1/generate reply as check_greedy reads a result."""
+
+    def __init__(self, out):
+        self.tokens, self.request_id = out["tokens"], out["request_id"]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
 def kernel_entry(case: dict) -> dict:
     return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "call_ms": case["call_ms"], "plain_ms": case["plain_ms"],
@@ -2362,12 +3168,10 @@ def main(argv) -> int:
     cfg = gpt.GPTConfig()
     params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
     report["serving"] = phase_serving(params, cfg)
+    report["fleet"] = phase_fleet(params, cfg)
     del params
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_line()
     # the main path's case (bf16 at the GPT width) and, beside it, the
     # same shape in fp32
     cases = {c["case"]: c for c in report["kernels"]}
@@ -2380,6 +3184,7 @@ def main(argv) -> int:
         "train_launches_per_step": report["train"]["launches_per_step"],
         "trial_launches": report["trial"]["launches"],
         "serving_launches": report["serving"]["flash_launches"],
+        "fleet_launches": report["fleet"]["flash_launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

@@ -1,6 +1,9 @@
 """Online serving: paged KV cache with prefix sharing, the
 continuous-batching engine (chunked prefill, speculative decoding, CUDA
-graphs after warmup) and its HTTP server."""
+graphs after warmup), the KV tiers below the prefix cache (host, CAS),
+and the fleet: replicas behind the prefix-affinity router with drain,
+blue-green rollout, supervision, autoscaling and chaos scenarios, and
+the HTTP front doors."""
 from determined_clone_tpu_torch.serving.bucketing import (
     BucketSpec,
     bucket_for,
@@ -22,10 +25,41 @@ from determined_clone_tpu_torch.serving.kv_cache import (
     PrefixMatch,
     init_kv_pools,
 )
+from determined_clone_tpu_torch.serving.kv_store import (
+    KVBlockStore,
+    PrefixInventory,
+    params_fingerprint,
+    prompt_chain_keys,
+)
+from determined_clone_tpu_torch.serving.router import (
+    ROUTER_RETRY,
+    LeastLoadedRouter,
+    NoHealthyReplica,
+    RoutablePort,
+)
+from determined_clone_tpu_torch.serving.fleet import (
+    FleetStats,
+    PoisonPillRequest,
+    Replica,
+    RequestLedger,
+    RolloutReport,
+    ServingFleet,
+)
+from determined_clone_tpu_torch.serving.supervisor import FleetSupervisor
+from determined_clone_tpu_torch.serving.autoscale import (
+    AutoscalePolicy,
+    Autoscaler,
+    AutoscaleSignals,
+)
 
 __all__ = [
-    "ADMISSION_RETRY", "BlockAllocator", "BucketSpec", "EngineStats",
-    "InferenceEngine", "KVCacheConfig", "PrefixCache", "PrefixMatch",
-    "ReplicaFailed", "Request", "RequestResult", "ServerOverloaded",
-    "bucket_for", "init_kv_pools", "pow2_buckets",
+    "ADMISSION_RETRY", "AutoscalePolicy", "AutoscaleSignals", "Autoscaler",
+    "BlockAllocator", "BucketSpec", "EngineStats", "FleetStats",
+    "FleetSupervisor", "InferenceEngine", "KVBlockStore", "KVCacheConfig",
+    "LeastLoadedRouter", "NoHealthyReplica", "PoisonPillRequest",
+    "PrefixCache", "PrefixInventory", "PrefixMatch", "ROUTER_RETRY",
+    "Replica", "ReplicaFailed", "Request", "RequestLedger", "RequestResult",
+    "RolloutReport", "RoutablePort", "ServerOverloaded", "ServingFleet",
+    "bucket_for", "init_kv_pools", "params_fingerprint", "pow2_buckets",
+    "prompt_chain_keys",
 ]

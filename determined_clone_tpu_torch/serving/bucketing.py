@@ -103,7 +103,8 @@ class BucketSpec:
         - prefix sharing: one copy-on-write block copy per pool pair
           (target, and draft when speculative);
         - KV tier: one block write per pool pair (counted for the JAX
-          package's ladder; the port's engine has no KV tier yet).
+          package's ladder; the port's engine writes a promoted block
+          eagerly, in place, outside its ladder, and does not count it).
         """
         budget = self.program_budget
         if speculative:

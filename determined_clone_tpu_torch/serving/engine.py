@@ -48,8 +48,16 @@ never reassigned, and after warmup the engine owns its parameter
 tensors: :meth:`InferenceEngine.hot_swap` copies new weights into them,
 so the captured graphs serve the new model.
 
-Not ported yet (``ROADMAP.md``, Queue 1): the KV tiers below the prefix
-cache (``kv_store=`` raises) and the XLA executable-cache hooks
+KV tiers (``kv_store=``, a :class:`~.kv_store.KVBlockStore`, with the
+prefix cache): prefix-cache eviction demotes a full block's exact K/V to
+the host tier (and on to CAS), and admission promotes tier hits back into
+fresh pool blocks before matching, so a restarted or replacement replica
+serves a known prefix without prefilling it. A promoted block is written
+into the pools in place, on the scheduler's stream, before the next
+program call reads it; the pools are never rebound, so the captured
+graphs see it. The write is not a program of the ladder.
+
+Not ported (``ROADMAP.md``): the XLA executable-cache hooks
 (``exec_dispatchers``, ``exec_cache_summary``), which have no CUDA
 counterpart here.
 """
@@ -80,11 +88,15 @@ from determined_clone_tpu_torch.serving.kv_cache import (
     PrefixCache,
     init_kv_pools,
 )
+from determined_clone_tpu_torch.serving.kv_store import (
+    PrefixInventory,
+    params_fingerprint,
+    payload_array,
+    payload_fits,
+    payload_tensor,
+)
 from determined_clone_tpu_torch.telemetry.metrics import MetricsRegistry
 from determined_clone_tpu_torch.utils.retry import RetryPolicy, retry_call
-
-_ROADMAP_KV_TIERS = ("ROADMAP.md, Queue 1: serving, the KV tiers "
-                     "(kv_store.py, warmstart.py)")
 
 
 class ServerOverloaded(RuntimeError):
@@ -162,6 +174,11 @@ class EngineStats:
     spec_tokens_proposed: int = 0
     spec_tokens_accepted: int = 0
     spec_acceptance_rate: Optional[float] = None
+    kv_host_hit_blocks: int = 0
+    kv_cas_hit_blocks: int = 0
+    kv_miss_blocks: int = 0
+    kv_promoted_blocks: int = 0
+    kv_spilled_blocks: int = 0
 
 
 class _Handle:
@@ -322,10 +339,6 @@ class InferenceEngine:
                  fault_scope: str = "",
                  device: DeviceLike = "cuda") -> None:
         self.device = resolve_device(device)
-        if kv_store is not None:
-            raise NotImplementedError(
-                f"kv_store: the KV tiers below the prefix cache are not "
-                f"ported yet ({_ROADMAP_KV_TIERS})")
         self._check_device(params, "params")
         self.model_cfg = model_cfg
         # chaos targeting: with a scope the scheduler also hits
@@ -383,8 +396,25 @@ class InferenceEngine:
         else:
             self._draft_params = None
             self.draft_cfg = None
-        self._prefix = (PrefixCache(cache, self._allocator)
-                        if prefix_cache else None)
+        # -- KV memory hierarchy (serving/kv_store.py): eviction demotes
+        # blocks into the store, admission promotes tier hits back into
+        # pool blocks before prefilling only the uncovered tail
+        if kv_store is not None and not prefix_cache:
+            raise ValueError("kv_store requires prefix_cache=True — the "
+                             "tier is keyed by the prefix cache's chain "
+                             "hashes")
+        self._kv_store = kv_store
+        self._prefix = (PrefixCache(
+            cache, self._allocator,
+            spill=self._spill_block if kv_store is not None else None)
+            if prefix_cache else None)
+        # tier-key scope: cached K/V is a function of the params, so a
+        # weight change switches fingerprints
+        self._params_fp = (params_fingerprint(params)
+                           if kv_store is not None else "")
+        # promotion writes queued at admission; each dst block carries an
+        # extra allocator reference until its write lands in _do_writes
+        self._pending_writes: List[Tuple[int, Dict[str, Any]]] = []
         self._programs: Dict[Tuple[Any, ...], _Program] = {}
         # set by warmup: from then on the engine owns its parameter
         # tensors (the captured graphs read them) and hot_swap copies new
@@ -452,6 +482,21 @@ class InferenceEngine:
         self._c_expired = m.counter(
             "serving_requests_expired_total",
             "requests retired at their deadline (blocks freed, not decoded)")
+        self._c_kv_host_hit = m.counter(
+            "kv_tier_host_hit_blocks_total",
+            "prompt blocks promoted from the host KV tier")
+        self._c_kv_cas_hit = m.counter(
+            "kv_tier_cas_hit_blocks_total",
+            "prompt blocks promoted from the CAS KV tier")
+        self._c_kv_miss = m.counter(
+            "kv_tier_miss_blocks_total",
+            "prompt blocks absent from every KV tier (prefilled fresh)")
+        self._c_kv_promoted = m.counter(
+            "kv_tier_promoted_blocks_total",
+            "host→pool promotion writes landed (re-prefill avoided)")
+        self._c_kv_spilled = m.counter(
+            "kv_tier_spilled_blocks_total",
+            "pool blocks demoted into the host tier instead of dropped")
 
         self._cond = threading.Condition()
         self._queue: collections.deque[_Handle] = collections.deque()
@@ -964,7 +1009,12 @@ class InferenceEngine:
                 spec_tokens_proposed=proposed,
                 spec_tokens_accepted=accepted,
                 spec_acceptance_rate=(accepted / proposed
-                                      if proposed else None))
+                                      if proposed else None),
+                kv_host_hit_blocks=int(self._c_kv_host_hit.value),
+                kv_cas_hit_blocks=int(self._c_kv_cas_hit.value),
+                kv_miss_blocks=int(self._c_kv_miss.value),
+                kv_promoted_blocks=int(self._c_kv_promoted.value),
+                kv_spilled_blocks=int(self._c_kv_spilled.value))
 
     # -- scheduler -----------------------------------------------------------
 
@@ -996,6 +1046,12 @@ class InferenceEngine:
                             self._prefix.flush()
                             self._g_free_blocks.set(
                                 self._allocator.free_blocks())
+                        if self._kv_store is not None:
+                            # new weights, new tier scope: old-params
+                            # blocks stay fetchable under the old
+                            # fingerprint (a rollback warms), never here
+                            self._params_fp = params_fingerprint(
+                                self._params)
                     admitted = self._admit_locked()
                     self._busy = True
                 # fault points fire outside the condition (a delay rule
@@ -1004,12 +1060,17 @@ class InferenceEngine:
                     for rid in admitted:
                         faults.point("engine.admit")
                         faults.point("engine.admit." + rid)
+                    if self._pending_writes:
+                        faults.point("kv_store.promote")
                     faults.point("engine.step")
                     if self._fault_scope:
                         faults.point("engine.step." + self._fault_scope)
                 iter_t0 = time.monotonic()
                 with torch.no_grad():
                     worked = self._reap_expired()
+                    if self._pending_writes:
+                        self._do_writes()
+                        worked = True
                     if self._prefilling:
                         self._prefill_step()
                         worked = True
@@ -1048,6 +1109,9 @@ class InferenceEngine:
         ``(handle, was_active)`` pairs to fail."""
         pairs = [(h, False) for h in self._queue]
         self._queue.clear()
+        for block, _payload in self._pending_writes:
+            self._allocator.release([block])
+        self._pending_writes.clear()
         for a in self._active + self._prefilling:
             if a.pending_copy is not None:
                 self._allocator.release([a.pending_copy[0]])
@@ -1098,6 +1162,11 @@ class InferenceEngine:
             skip = kept = 0
             need = need_total
             if self._prefix is not None:
+                if self._kv_store is not None:
+                    # warm the prefix cache from the lower tiers first,
+                    # so the match below aliases promoted blocks exactly
+                    # like always-resident ones
+                    self._promote_locked(head.req.prompt)
                 match = self._prefix.match(head.req.prompt)
                 # always leave >= 1 prompt token to process: the last
                 # prompt token is re-scored to give the first sampled
@@ -1151,6 +1220,134 @@ class InferenceEngine:
         self._g_queue.set(len(self._queue))
         self._g_free_blocks.set(self._allocator.free_blocks())
         return admitted
+
+    # -- KV memory hierarchy (serving/kv_store.py) -------------------------
+
+    def _payload_ok(self, payload: Dict[str, Any]) -> bool:
+        """A tier payload is adoptable iff every array fits its pool's
+        slot unchanged (:func:`payload_fits`: shape, dtype and host
+        representation; a config change or a foreign entry is a plain
+        miss, never a bad write) and it covers the draft pools when
+        speculation is on."""
+        want = [("k", self._k_pool), ("v", self._v_pool)]
+        if self._spec_k:
+            want += [("dk", self._dk_pool), ("dv", self._dv_pool)]
+        if not isinstance(payload, dict):
+            return False
+        return all(payload_fits(payload.get(name), pool)
+                   for name, pool in want)
+
+    def _promote_locked(self, prompt: Tuple[int, ...]) -> None:
+        """Under ``self._cond``: warm the prefix cache from the host/CAS
+        tiers before matching one prompt. Walks the prompt's full blocks
+        in chain order; for each key not already resident, fetches the
+        exact payload, allocates a pool block, indexes it (the cache
+        adopts the allocator reference) and queues the host→pool write,
+        which lands in :meth:`_do_writes` before any admitted row's
+        first forward. The first miss ends the walk: a later hit would
+        alias a block whose predecessors are absent."""
+        bs = self.cache.block_size
+        prev = b""
+        for i in range(len(prompt) // bs):
+            key = PrefixCache._chain(prev, prompt[i * bs:(i + 1) * bs])
+            prev = key
+            if self._prefix.has_key(key):
+                continue
+            key_hex = key.hex()
+            from_host = self._kv_store.contains(self._params_fp, key_hex)
+            payload = self._kv_store.get(self._params_fp, key_hex)
+            if payload is None or not self._payload_ok(payload):
+                self._c_kv_miss.inc()
+                break
+            if self._allocator.free_blocks() < 1:
+                self._prefix.evict(1)
+                if self._allocator.free_blocks() < 1:
+                    break
+            block = self._allocator.allocate_blocks(1)[0]
+            self._prefix.adopt(key, block, i)
+            # extra reference pins the dst until the write lands
+            self._allocator.retain([block])
+            self._pending_writes.append((block, payload))
+            (self._c_kv_host_hit if from_host
+             else self._c_kv_cas_hit).inc()
+
+    def _do_writes(self) -> None:
+        """Land queued promotion writes before any prefill or decode
+        touches the pools: each payload is copied into its block of every
+        layer in place (the pools are never rebound — the captured graphs
+        hold their addresses), on this thread's stream, so the next
+        program call reads it. Drops each dst block's pinning reference
+        once its write is queued."""
+        writes, self._pending_writes = self._pending_writes, []
+        for block, payload in writes:
+            names = [("k", self._k_pool), ("v", self._v_pool)]
+            if self._spec_k:
+                names += [("dk", self._dk_pool), ("dv", self._dv_pool)]
+            for name, pool in names:
+                pool[:, block].copy_(payload_tensor(payload[name]))
+            self._allocator.release([block])
+            self._c_kv_promoted.inc()
+
+    def _spill_block(self, key: bytes, block: int, depth: int) -> bool:
+        """PrefixCache demotion hook: copy one full block's exact K/V to
+        the host tier. Runs on the scheduler thread (or under an idle
+        engine's lock) while the cache still holds the block's reference,
+        so the pool contents are intact; the device-to-host copy waits
+        for the stream's queued work. Never raises — a failed spill just
+        means the block is gone, as before the tier existed."""
+        try:
+            payload = {"k": payload_array(self._k_pool[:, block]),
+                       "v": payload_array(self._v_pool[:, block])}
+            if self._spec_k:
+                payload["dk"] = payload_array(self._dk_pool[:, block])
+                payload["dv"] = payload_array(self._dv_pool[:, block])
+            self._kv_store.put(self._params_fp, key.hex(), payload)
+        except Exception:  # noqa: BLE001 — demotion is best-effort
+            return False
+        self._c_kv_spilled.inc()
+        return True
+
+    def flush_kv_to_tier(self) -> int:
+        """Demote every full-block prefix-cache entry into the host/CAS
+        tiers, so a teardown (rollout, replace, stop) keeps the fleet's
+        warm state. Requires an idle engine (a dead or wedged one raises,
+        and the fleet degrades to a cold teardown). Entries stay
+        resident; the tier holds copies. Returns blocks spilled."""
+        if self._prefix is None or self._kv_store is None:
+            return 0
+        n = 0
+        with self._cond:
+            self._await_idle_locked("flush_kv_to_tier")
+            for key, block, depth in self._prefix.entries():
+                if self._spill_block(key, block, depth):
+                    n += 1
+        return n
+
+    def prefix_inventory(self) -> Optional[Dict[str, Any]]:
+        """Router-facing digest of the chain keys this replica can serve
+        cheaply: resident prefix-cache entries (roots first — a missed
+        root zeroes coverage) followed by this fingerprint's host-tier
+        keys. None when the prefix cache is off."""
+        if self._prefix is None:
+            return None
+        # the scheduler thread may be registering entries concurrently
+        # (dict iteration can raise mid-insert): retry, then serve an
+        # empty digest — the inventory is a routing hint only
+        for _ in range(3):
+            try:
+                resident = sorted(self._prefix.entries(),
+                                  key=lambda e: e[2])
+                break
+            except RuntimeError:
+                continue
+        else:
+            resident = []
+        keys = [k.hex() for k, _block, _depth in resident]
+        if self._kv_store is not None:
+            seen = set(keys)
+            keys += [k for k in self._kv_store.keys(self._params_fp)
+                     if k not in seen]
+        return PrefixInventory.build(keys).to_dict()
 
     def _reap_expired(self) -> bool:
         """Retire cancelled and deadline-expired rows at the iteration

@@ -21,8 +21,9 @@ content-hashes the prompt's blocks and lets a new sequence alias
 already-resident block ids through its block table, so a shared system
 prompt is stored once and its prefill skipped. A shared block is
 immutable; the engine copy-on-write forks the one block a new owner
-would ever write. The KV tiers' half of the JAX cache (``adopt``,
-``entries``) is not ported yet.
+would ever write. With the KV tiers (serving/kv_store.py), eviction
+demotes full blocks through the ``spill`` hook, and blocks promoted
+from a tier are indexed with :meth:`PrefixCache.adopt`.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import dataclasses
 import hashlib
 import math
 import threading
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -179,14 +180,26 @@ class PrefixCache:
     sharing a block add their own. Eviction (LRU, deepest-first so a
     chain never strands unreachable descendants) merely drops the
     cache's reference — blocks stay alive until their last sequence
-    retires. Single-writer: all mutation happens on the engine's
-    scheduler thread.
+    retires.
+
+    The optional ``spill`` callback turns eviction into demotion: it is
+    called with ``(key, block, depth)`` for every evicted full-block
+    entry while the cache still holds its reference (so the block's
+    contents are intact), letting the engine copy the exact K/V into the
+    host/CAS tiers. Tail-keyed entries never spill — they are private to
+    one exact prompt. The callback must not raise.
+
+    Single-writer: all mutation happens on the engine's scheduler
+    thread.
     """
 
     def __init__(self, cache: KVCacheConfig,
-                 allocator: BlockAllocator) -> None:
+                 allocator: BlockAllocator, *,
+                 spill: Optional[Callable[[bytes, int, int], Any]] = None
+                 ) -> None:
         self._cfg = cache
         self._alloc = allocator
+        self._spill = spill
         # key -> (block id, depth, last-used tick, tail?); depth = block
         # index within the prompt, used to evict leaves before parents
         self._entries: Dict[bytes, Tuple[int, int, int, bool]] = {}
@@ -257,24 +270,49 @@ class PrefixCache:
                 self._entries[key] = (blocks[n_full], n_full, self._tick,
                                       True)
 
+    def has_key(self, key: bytes) -> bool:
+        return key in self._entries
+
+    def adopt(self, key: bytes, block: int, depth: int) -> None:
+        """Index a block promoted from a lower tier. The cache takes over
+        the caller's allocator reference — the caller allocated the
+        block (refcount 1) and must not release it. Only full blocks are
+        promoted, so adopted entries are never tail-keyed."""
+        if key in self._entries:
+            raise ValueError("adopt of an already-indexed prefix key")
+        self._tick += 1
+        self._entries[key] = (block, depth, self._tick, False)
+
+    def entries(self) -> List[Tuple[bytes, int, int]]:
+        """``(key, block, depth)`` of every full-block entry, for the
+        engine's flush-to-tier path and the prefix-inventory digest.
+        Tail-keyed entries are omitted: they never spill or advertise."""
+        return [(k, e[0], e[1]) for k, e in self._entries.items()
+                if not e[3]]
+
     def evict(self, want_free: int) -> int:
         """Drop LRU entries until the allocator has ``want_free`` free
         blocks or the cache is empty. Oldest tick first, deepest block
-        first on ties, so a chain's leaves go before its root. Returns
-        entries dropped."""
+        first on ties, so a chain's leaves go before its root. Full-block
+        entries are offered to ``spill`` before their reference is
+        released. Returns entries dropped."""
         dropped = 0
         while self._entries and self._alloc.free_blocks() < want_free:
             key = min(self._entries,
                       key=lambda k: (self._entries[k][2],
                                      -self._entries[k][1]))
-            block = self._entries.pop(key)[0]
+            block, depth, _, tail = self._entries.pop(key)
+            if self._spill is not None and not tail:
+                self._spill(key, block, depth)
             self._alloc.release([block])
             dropped += 1
         return dropped
 
     def flush(self) -> int:
         """Drop everything — cached KV is a function of the params, so
-        hot-swap invalidates the whole index."""
+        hot-swap invalidates the whole index. No spill: a deliberate
+        flush-to-tier goes through the engine's ``flush_kv_to_tier()``,
+        which snapshots :meth:`entries` first."""
         n = len(self._entries)
         for block, _, _, _ in self._entries.values():
             self._alloc.release([block])

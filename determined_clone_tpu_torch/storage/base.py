@@ -4,12 +4,13 @@
 A :class:`StorageManager` uploads, downloads and deletes a checkpoint
 directory by its storage id, and commits it with the ``COMMIT`` marker.
 The port has the ``shared_fs`` and ``directory`` backends; the GCS, S3
-and Azure managers and the content-addressed store wait (``ROADMAP.md``).
-Files are copied one after another on the calling thread, where the JAX
-package fans them over its transfer pool; each copy retries on its own,
-so a failed file never redoes the files before it. The directory layout
-and the commit protocol are the JAX package's, so either package reads
-what the other wrote.
+and Azure managers and the checkpoint half of the content-addressed
+store wait (``ROADMAP.md``; its KV half is storage/cas.py). Uploads fan
+their files over the shared transfer pool (storage/transfer.py), as in
+the JAX package; each copy retries on its own, so a failed file never
+redoes the files before it. The directory layout and the commit
+protocol are the JAX package's, so either package reads what the other
+wrote.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from determined_clone_tpu_torch import faults
 from determined_clone_tpu_torch.config.experiment import (
     CheckpointStorageConfig,
 )
+from determined_clone_tpu_torch.storage import transfer as transfer_pool
 from determined_clone_tpu_torch.utils import retry as retry_util
 
 # Commit marker: its presence is the only thing that makes a checkpoint
@@ -65,10 +67,35 @@ class StorageManager(abc.ABC):
                payload: Optional[Dict[str, Any]] = None) -> None:
         """Write the COMMIT marker as the checkpoint's final act."""
 
+    def delete_files(self, storage_id: str, paths: List[str]) -> None:
+        """Delete individual objects of one storage id (idempotent:
+        already-missing paths are not an error). The KV tier's namespace
+        sweep (storage/cas.py) reclaims single objects with it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot delete individual files")
+
+    def has_file(self, storage_id: str, rel: str) -> bool:
+        """Whether one object exists, without the download's retries: the
+        KV tier (storage/cas.py) asks on every lookup, where an absent
+        object is a plain miss and not a transient fault."""
+        try:
+            return rel in self.list_files(storage_id)
+        except (FileNotFoundError, KeyError):
+            return False
+
+    def file_mtimes(self, storage_id: str,
+                    paths: List[str]) -> Dict[str, float]:
+        """Wall-clock mtime per relative path (missing files omitted).
+        Optional: the namespace sweep orders by it, and skips the sweep
+        when a backend cannot stat."""
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot stat per-file mtimes")
+
     @contextlib.contextmanager
-    def restore_path(self, storage_id: str) -> Iterator[str]:
+    def restore_path(self, storage_id: str, base_tmp: Optional[str] = None
+                     ) -> Iterator[str]:
         """Yield a local dir containing the downloaded checkpoint."""
-        tmp = tempfile.mkdtemp()
+        tmp = tempfile.mkdtemp(dir=base_tmp)
         try:
             self.download(storage_id, tmp)
             yield tmp
@@ -94,9 +121,15 @@ class SharedFSStorageManager(StorageManager):
                paths: Optional[List[str]] = None) -> None:
         dst = self._dir(storage_id)
         os.makedirs(dst, exist_ok=True)
-        for rel in paths if paths is not None else _walk_relative(src_dir):
-            _transfer(self._copy_in, os.path.join(src_dir, rel),
-                      os.path.join(dst, rel))
+        rels = paths if paths is not None else _walk_relative(src_dir)
+        # fan per-file copies over the shared transfer pool; retries stay
+        # per-file (_transfer) so already-copied files are never redone
+        transfer_pool.get_pool().run([
+            (lambda rel=rel: _transfer(
+                self._copy_in,
+                os.path.join(src_dir, rel), os.path.join(dst, rel)))
+            for rel in rels
+        ])
 
     @staticmethod
     def _copy_in(src: str, out: str) -> None:
@@ -140,6 +173,33 @@ class SharedFSStorageManager(StorageManager):
 
     def delete(self, storage_id: str) -> None:
         shutil.rmtree(self._dir(storage_id), ignore_errors=True)
+
+    def delete_files(self, storage_id: str, paths: List[str]) -> None:
+        d = self._dir(storage_id)
+        for rel in paths:
+            try:
+                os.remove(os.path.join(d, rel))
+            except FileNotFoundError:
+                pass  # idempotent: a concurrent sweep already removed it
+        # prune now-empty fan-out dirs
+        for root, _, _ in os.walk(d, topdown=False):
+            if root != d and not os.listdir(root):
+                with contextlib.suppress(OSError):
+                    os.rmdir(root)
+
+    def has_file(self, storage_id: str, rel: str) -> bool:
+        return os.path.isfile(os.path.join(self._dir(storage_id), rel))
+
+    def file_mtimes(self, storage_id: str,
+                    paths: List[str]) -> Dict[str, float]:
+        d = self._dir(storage_id)
+        out: Dict[str, float] = {}
+        for rel in paths:
+            try:
+                out[rel] = os.path.getmtime(os.path.join(d, rel))
+            except OSError:
+                pass  # vanished mid-sweep: simply absent
+        return out
 
     def list_files(self, storage_id: str) -> Dict[str, int]:
         d = self._dir(storage_id)

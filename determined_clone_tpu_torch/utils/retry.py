@@ -1,17 +1,18 @@
 """Retry with backoff for transient failures — the port's trimmed copy of
-``determined_clone_tpu/utils/retry.py`` (what checkpoint storage needs).
+``determined_clone_tpu/utils/retry.py`` (what checkpoint storage, serving
+admission and the fleet router need).
 
 A policy gives exponential backoff with full jitter: the delay before a
-retry is drawn uniformly from ``[0, min(max_delay, base * mult**(n-1))]``.
-The JAX module's deadlines, retry counters and metrics-registry hook
-are not needed by storage and wait for the port's telemetry.
+retry is drawn uniformly from ``[0, min(max_delay, base * mult**(n-1))]``,
+and an optional ``deadline_s`` bounds the whole call. The JAX module's
+retry counters and its metrics-registry hook are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import random
 import time
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +24,7 @@ class RetryPolicy:
     base_delay_s: float = 0.1
     multiplier: float = 2.0
     max_delay_s: float = 5.0
+    deadline_s: Optional[float] = None
     retryable: Tuple[type, ...] = (ConnectionError, TimeoutError, OSError)
 
     def backoff(self, failures: int) -> float:
@@ -35,8 +37,10 @@ class RetryPolicy:
 def retry_call(fn: Callable[..., Any], *args: Any, policy: RetryPolicy,
                **kwargs: Any) -> Any:
     """Call ``fn`` under ``policy``; re-raise the last failure once
-    ``policy.max_attempts`` calls have failed. Only ``policy.retryable``
-    exceptions are retried."""
+    ``policy.max_attempts`` calls have failed or the deadline has passed.
+    Only ``policy.retryable`` exceptions are retried."""
+    deadline = (time.monotonic() + policy.deadline_s
+                if policy.deadline_s is not None else None)
     failures = 0
     while True:
         try:
@@ -45,4 +49,10 @@ def retry_call(fn: Callable[..., Any], *args: Any, policy: RetryPolicy,
             failures += 1
             if failures >= policy.max_attempts:
                 raise
-            time.sleep(policy.backoff(failures))
+            delay = policy.backoff(failures)
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise
+                delay = min(delay, remaining)
+            time.sleep(delay)
