@@ -153,7 +153,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``kv_stats()``; (h) six chaos scenarios at chaos's own configuration
    (``serving/chaos.py``) pass on the card; (i) no flash launch. Prints
    memory after each scale_up and every rate beside the card's name and
-   power limit.
+   power limit;
+11. the parallelism slice, in a one-rank NCCL world joined through
+   ``exec/launch.py`` (``init_rank``; the card is one, so world size 1):
+   (a) ``moe_ffn`` at N=8192 tokens, D 768, F 3072, E 8, k 2, cf 1.25
+   against ``moe_ffn_dense`` (the JAX package's one-hot einsum form) on
+   the same inputs, fp32 within 1e-5 of the largest output and bf16
+   within ``TOL``, the same dropped choices, each form's device ms; (b)
+   ``GPTConfig(moe_experts=8)`` (Switch-Base-8's widths on the GPT-2-small
+   stack, ~520M parameters) at B=8, T=1024, bf16, remat, ``bench.py``'s
+   AdamW, 16 steps on one batch, state and batch DTensors placed by
+   ``GPT_SHARDING_RULES`` on the one-rank mesh: finite losses that fall,
+   24 flash launches per step; ms/step, tokens/s, MFU by the index-form
+   FLOP count, the dropped share, the aux loss, peak memory, the busy
+   share and the top kernels; (c) BASELINE #5,
+   ``examples/gpt_fsdp/fsdp.yaml`` cut as phase 7 cuts it (one slot,
+   ``mesh.fsdp`` 1), through ``core.init`` → ``Trainer.fit`` on that
+   mesh for 10 batches: the training and validation losses at 10 equal
+   phase 7's unmeshed leg bit for bit, the checkpoint's manifest in the
+   JAX block layout, the checkpoint restored into the DTensor state bit
+   for bit; (d) the MoE GPT in fp32 behind phase 9's ``ServingConfig``
+   (128-token chunks): phase 4's 8-request burst on a cold engine
+   (eager) and on a warmed one (graph replays only), token for token,
+   with tokens/s.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
@@ -161,7 +183,8 @@ that of phase 3, the uncached forward (the engine's paged forward
 attends with plain ``mha``, as in the JAX package); ``train_launches``
 is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
 two legs; phases 8, 9 and 10 launch none (``serving_launches``,
-``fleet_launches``). The last
+``fleet_launches``); ``parallel_launches`` is phase 11's, (b) to (d).
+The last
 three lines are the kernels' JSON line, the card's name and power limit,
 and the result; the line before them gives the whole script's wall
 time. Details go to ``smoke_out/chip_smoke.json``. Exits non-zero,
@@ -3110,6 +3133,366 @@ def phase_fleet(params, cfg) -> dict:
             "parts_s": parts_s, "checks": checks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the parallelism slice — the MoE FFN, the MoE GPT trained on a
+# one-rank NCCL mesh, BASELINE #5 through the launcher's world, the MoE GPT
+# served
+# ---------------------------------------------------------------------------
+
+# Switch-Base-8's widths on the GPT-2-small stack: GPTConfig(moe_experts=8)
+MOE = {"tokens": 8192, "experts": 8, "k": 2, "cf": 1.25, "steps": 16}
+
+
+def moe_case(params, x, dtype) -> dict:
+    """(a) ``moe_ffn`` (index dispatch) against ``moe_ffn_dense`` (the JAX
+    package's one-hot einsum form) on the same inputs: equal dropped
+    sets, outputs within 1e-5 of the largest (fp32) or ``TOL`` (bf16);
+    each form's device ms."""
+    import torch
+
+    from determined_clone_tpu_torch.ops.moe import moe_ffn, moe_ffn_dense
+    from determined_clone_tpu_torch.timing import device_ms
+
+    kw = dict(k=MOE["k"], capacity_factor=MOE["cf"], compute_dtype=dtype)
+    si, sd = {}, {}
+    with torch.no_grad():
+        yi, ai = moe_ffn(params, x, stats=si, **kw)
+        yd, ad = moe_ffn_dense(params, x, stats=sd, **kw)
+        err = (yi.float() - yd.float()).abs().max().item()
+        scale = yd.float().abs().max().item()
+        tol = 1e-5 * scale if dtype == torch.float32 else TOL[str(dtype)]
+        same_drops = torch.equal(si["keep"], sd["keep"])
+        ms = device_ms(lambda: moe_ffn(params, x, **kw), iters=10, replays=3)
+        dense_ms = device_ms(lambda: moe_ffn_dense(params, x, **kw), iters=3,
+                             replays=2)
+    dropped = 1.0 - si["keep"].float().mean().item()
+    name = str(dtype).split(".")[-1]
+    if not same_drops:
+        raise AssertionError(f"moe {name}: the index and einsum forms drop "
+                             f"different choices")
+    if not err <= tol:
+        raise AssertionError(f"moe {name}: index vs einsum form {err} > "
+                             f"{tol}")
+    if not abs(ai.item() - ad.item()) <= 1e-5:
+        raise AssertionError(f"moe {name}: aux {ai.item()} vs {ad.item()}")
+    log(f"[parallel] (a) moe_ffn {name} N={x.shape[0] * x.shape[1]} E="
+        f"{MOE['experts']} k={MOE['k']} cf={MOE['cf']} (C={si['capacity']})"
+        f": index form {ms:.3f} ms, einsum form {dense_ms:.3f} ms (device), "
+        f"max |diff| {err:.3g} (tolerance {tol:.3g}), dropped choices "
+        f"{dropped:.4f}, aux {ai.item():.5f}")
+    return {"index_ms": ms, "einsum_ms": dense_ms, "max_abs_err": err,
+            "tol": tol, "dropped_share": dropped, "aux": ai.item(),
+            "capacity": si["capacity"]}
+
+
+def moe_ffn_cases() -> dict:
+    import torch
+
+    from determined_clone_tpu_torch.ops.moe import moe_init
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = moe_init(gen, MOE["experts"], 768, 3072, device="cuda")
+    x = torch.randn((8, MOE["tokens"] // 8, 768), generator=gen,
+                    device="cuda")
+    return {str(dt).split(".")[-1]: moe_case(params, x, dt)
+            for dt in (torch.float32, torch.bfloat16)}
+
+
+def moe_dropped_share(state, cfg, tokens) -> dict:
+    """The dropped share of the top-k choices, per layer, and the aux loss
+    of one no-grad forward of the trained state."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    shares, orig = [], gpt.moe_ffn
+
+    def spy(*args, **kw):
+        stats = {}
+        out = orig(*args, stats=stats, **kw)
+        shares.append(1.0 - stats["keep"].float().mean().item())
+        return out
+
+    gpt.moe_ffn = spy
+    try:
+        with torch.no_grad():
+            _, aux = gpt._forward(state.params, cfg, tokens[:, :-1])
+    finally:
+        gpt.moe_ffn = orig
+    return {"dropped_share_per_layer": shares,
+            "dropped_share": sum(shares) / len(shares),
+            "aux_per_layer": aux.item() / cfg.n_layers}
+
+
+def moe_train(mesh) -> dict:
+    """(b) ``GPTConfig(moe_experts=8)`` at B=8, T=1024, bf16, remat,
+    ``bench.py``'s AdamW, 16 steps on one batch, the state and batch
+    DTensors placed by ``GPT_SHARDING_RULES`` on the one-rank mesh."""
+    import math
+    import statistics
+
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.parallel.sharding import (
+        NamedSharding,
+        batch_spec,
+        to_dtensor,
+    )
+    from determined_clone_tpu_torch.telemetry import flops
+    from determined_clone_tpu_torch.training.train_step import (
+        shard_state,
+        state_shardings,
+    )
+
+    cfg = gpt.GPTConfig(moe_experts=MOE["experts"])
+    B, T = 8, 1024
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params = gpt.param_count(params)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    state, step = train_setup(cfg, params)
+    state = shard_state(state, state_shardings(state, mesh,
+                                               gpt.GPT_SHARDING_RULES))
+    batch = to_dtensor(tokens, NamedSharding(mesh, batch_spec(1)))
+    del params
+    losses, windows = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the state, and earlier phases'
+    flash_attention.launches = 0
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    float(m["loss"])
+    for _ in range(2):
+        t0 = time.monotonic()
+        for _ in range(7):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        float(m["loss"])
+        windows.append((time.monotonic() - t0) / 7)
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).tolist()
+    n = len(losses)
+    per_step = 2 * cfg.n_layers
+    step_s = statistics.median(windows)
+    index_flops = flops.gpt_train_step_flops(cfg, B, T, moe_dispatch="index")
+    einsum_flops = flops.gpt_train_step_flops(cfg, B, T)
+    mfu = flops.mfu(index_flops.flops_per_sec(step_s))
+    routing = moe_dropped_share(state, cfg, tokens)
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], batch)
+
+    lines = []
+    prof = profile_window(one_step, "MoE GPT train step B=8 T=1024", lines)
+    prof["busy_share"] = prof["device_ms"] / 1e3 / step_s
+    with open(os.path.join(OUT_DIR, "chip_profile.txt"), "a") as f:
+        f.write("\n" + "\n".join(lines))
+    del state, box
+    top = ", ".join(f"{t['name'][:40]} {t['ms']:.2f} ms x{t['calls']}"
+                    for t in prof["top"][:5])
+    log(f"[parallel] (b) MoE GPT ({n_params} params, E={MOE['experts']} "
+        f"k={cfg.moe_k} cf={cfg.moe_capacity_factor}) B={B} T={T} bf16 "
+        f"remat on a one-rank NCCL mesh: {step_s * 1e3:.2f} ms/step (windows"
+        f" {', '.join(f'{w * 1e3:.2f}' for w in windows)}), "
+        f"{B * T / step_s:.0f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s by the "
+        f"index-form count ({index_flops.total / 1e12:.3f} TFLOP/step; the "
+        f"einsum form's count {einsum_flops.total / 1e12:.3f}), peak memory "
+        f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} held before the first "
+        f"step), flash launches {launches} "
+        f"({launches // n} per step)")
+    log(f"[parallel] (b) loss first {losses[0]:.4f} last {losses[-1]:.4f} "
+        f"after {n} steps; dropped share {routing['dropped_share']:.4f} "
+        f"(per layer {', '.join(f'{s:.3f}' for s in routing['dropped_share_per_layer'])}); "
+        f"aux per layer {routing['aux_per_layer']:.5f}")
+    log(f"[parallel] (b) profiled step: device {prof['device_ms']:.2f} ms, "
+        f"busy share {prof['busy_share']:.3f}; {top}")
+    if launches != n * per_step:
+        raise AssertionError(f"MoE step: flash launched {launches} times in "
+                             f"{n} steps, expected {per_step} per step")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"MoE step: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE step: the loss did not fall: {losses}")
+    return {"params": n_params, "batch": B, "seq": T, "steps": n,
+            "step_ms": step_s * 1e3, "window_ms": [w * 1e3 for w in windows],
+            "tokens_per_s": B * T / step_s, "mfu": mfu,
+            "tflop_per_step_index": index_flops.total / 1e12,
+            "tflop_per_step_einsum": einsum_flops.total / 1e12,
+            "peak_memory_bytes": peak, "held_before_bytes": held,
+            "launches": launches, "launches_per_step": launches // n,
+            "losses": losses, "routing": routing, "profile": prof}
+
+
+def baseline5_trial(dist, unmeshed) -> dict:
+    """(c) ``examples/gpt_fsdp/fsdp.yaml`` cut as phase 7 cuts it (one
+    slot, ``mesh.fsdp`` 1) through ``core.init`` → ``Trainer.fit`` on the
+    one-rank NCCL world: 10 batches, the reports equal to phase 7's
+    unmeshed leg at 10 bit for bit; the checkpoint's manifest in the JAX
+    block layout; restored into the DTensor state equal bit for bit."""
+    import json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.examples.gpt_fsdp import GPTTrial
+    from determined_clone_tpu_torch.parallel.spmd import local_tensor
+    from determined_clone_tpu_torch.training import Trainer, TrialContext
+    from determined_clone_tpu_torch.training.optim import leaves
+
+    raw = _read_yaml("examples/gpt_fsdp/fsdp.yaml")
+    hp = {k: v for k, v in raw["hyperparameters"].items()}
+    hp["mesh"] = {"fsdp": 1}
+    storage = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    try:
+        cfg = ExperimentConfig.from_dict({
+            "searcher": {"name": "single", "metric": "loss",
+                         "max_length": {"batches": 10}},
+            "scheduling_unit": 10,
+            "min_validation_period": {"batches": 10},
+            "min_checkpoint_period": {"batches": 10},
+            "checkpoint_storage": {"type": "shared_fs",
+                                   "host_path": storage},
+            "hyperparameters": hp, "resources": {"slots_per_trial": 1}})
+        with core.init(config=cfg, distributed=dist, trial_id=1) as ctx:
+            trial = GPTTrial(TrialContext(config=cfg, hparams=hp, core=ctx))
+            mesh = trial.context.mesh
+            trainer = Trainer(trial)
+            t0 = time.monotonic()
+            trainer.fit()
+            wall = time.monotonic() - t0
+            records = list(ctx.train._backend.records)
+            state = trainer._final_state
+            sid = ctx.checkpoint.committed_checkpoints()[0]
+            with ctx.checkpoint.restore_path(sid) as path:
+                with open(os.path.join(path, "state", "manifest-0.json")) as f:
+                    manifest = json.load(f)
+                files = sorted(os.listdir(os.path.join(path, "state")))
+                loaded = core.load_pytree(os.path.join(path, "state"), state)
+        # one rank: each local tensor is the whole tensor
+        bitwise = all(torch.equal(local_tensor(a), local_tensor(b))
+                      for a, b in zip(leaves(state.params),
+                                      leaves(loaded.params)))
+        table = manifest["leaves"]["0.embed.table"]
+        del state, loaded, trainer, trial
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    got = {(r["group"], r["steps_completed"]): r["metrics"]["loss"]
+           for r in records}
+    want = {("training", 10): unmeshed["training"][0][1]["loss"],
+            ("validation", 10): unmeshed["validation"][0][1]["loss"]}
+    checks = {
+        "(c) the mesh is the one-rank NCCL mesh of AXES": (
+            mesh is not None and mesh.size() == 1
+            and tuple(mesh.mesh_dim_names) == (
+                "dp", "fsdp", "pp", "ep", "sp", "tp")),
+        "(c) training and validation loss at 10 equal phase 7's unmeshed "
+        "leg bit for bit": all(got.get(k) == v for k, v in want.items()),
+        "(c) the checkpoint's manifest has the JAX block layout": (
+            files == ["manifest-0.json", "shard-0.npz"]
+            and manifest["format"] == 2
+            and table["blocks"] == [{"key": "0.embed.table#0",
+                                     "index": [[0, 50304], [0, 768]]}]),
+        "(c) the checkpoint restores into the DTensor state bit for bit":
+            bitwise,
+    }
+    log(f"[parallel] (c) fsdp.yaml on the one-rank mesh: loss at 10 "
+        f"{got.get(('training', 10))!r} (phase 7 {want[('training', 10)]!r})"
+        f", validation {got.get(('validation', 10))!r} (phase 7 "
+        f"{want[('validation', 10)]!r}); fit {wall:.2f} s")
+    return {"losses": {f"{g}@{s}": v for (g, s), v in got.items()},
+            "phase7": {f"{g}@{s}": v for (g, s), v in want.items()},
+            "wall_s": wall, "checks": checks}
+
+
+def moe_serving() -> dict:
+    """(d) the MoE GPT (fp32) behind phase 9's ServingConfig: the 8-request
+    burst on a cold engine (eager) and on one warmed by CUDA-graph
+    capture (replays only), token for token."""
+    import dataclasses as dc
+
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    cfg = dc.replace(gpt.GPTConfig(moe_experts=MOE["experts"]),
+                     compute_dtype=torch.float32)
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompts = prompts_of(SERVE["burst"], cfg.vocab_size, 0)
+    # prompts up to 200 tokens: 128-token chunks, as phase 9's burst
+    scfg = serving_config(chunk_prefill_len=SERVE["chunk"])
+    with serving_engine(params, cfg, scfg) as eng:
+        eng.generate([1, 2, 3], 2)
+        cold_res, cold_wall, _, _ = burst(eng, prompts, SERVE["new"])
+    with serving_engine(params, cfg, scfg) as eng:
+        programs = eng.warmup()
+        calls0 = eng.program_calls()
+        warm_res, warm_wall, _, _ = burst(eng, prompts, SERVE["new"])
+        calls1 = eng.program_calls()
+        eng.wait_idle()
+        eng.assert_kv_balanced(0)
+    del params
+    calls = {k: calls1[k] - calls0[k] for k in calls0}
+    n_tok = sum(len(r.tokens) for r in cold_res)
+    checks = {
+        "(d) the warm burst ran graph replays only": (
+            calls["eager"] == 0 and calls["replays"] > 0),
+        "(d) the MoE GPT's warm tokens equal its cold tokens": [
+            r.tokens for r in warm_res] == [r.tokens for r in cold_res],
+    }
+    log(f"[parallel] (d) MoE GPT fp32 served, 8 requests x {SERVE['new']} "
+        f"tokens: cold {n_tok / cold_wall:.1f} tokens/s, warm "
+        f"{n_tok / warm_wall:.1f} tokens/s ({programs} graphs, calls "
+        f"{calls}); echo share {echo_share(prompts, cold_res):.3f}")
+    return {"cold_tokens_per_s": n_tok / cold_wall,
+            "warm_tokens_per_s": n_tok / warm_wall, "programs": programs,
+            "warm_calls": calls, "checks": checks}
+
+
+def phase_parallel(unmeshed) -> dict:
+    """Phase 11: (a)-(d) of the module docstring, in a one-rank NCCL world
+    joined through ``exec/launch.py``; the flash kernel's launches over
+    (b)-(d) are ``parallel_launches``."""
+    from determined_clone_tpu_torch.exec import launch
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.parallel import MeshSpec, make_mesh
+
+    t0 = time.monotonic()
+    dist = launch.init_rank(0, 1, device="cuda")
+    try:
+        mesh = make_mesh(MeshSpec())
+        out = {"moe_ffn": moe_ffn_cases()}
+        flash_attention.launches = 0
+        out["train"] = moe_train(mesh)
+        trial_launches0 = flash_attention.launches
+        out["trial"] = baseline5_trial(dist, unmeshed)
+        out["trial_launches"] = flash_attention.launches - trial_launches0
+        out["serving"] = moe_serving()
+        out["launches"] = flash_attention.launches
+    finally:
+        launch.shutdown()
+    checks = {**out["trial"]["checks"], **out["serving"]["checks"]}
+    for name, ok in checks.items():
+        log(f"[parallel] check {'ok' if ok else 'FAILED'}: {name}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 11 checks failed: {failed}")
+    out["wall_s"] = time.monotonic() - t0
+    log(f"[parallel] phase 11 wall {out['wall_s']:.1f} s; flash launches "
+        f"{out['launches']} (train {out['train']['launches']}, trial "
+        f"{out['trial_launches']})")
+    return out
+
+
 class _Tok:
     """A /v1/generate reply as check_greedy reads a result."""
 
@@ -3170,6 +3553,7 @@ def main(argv) -> int:
     report["serving"] = phase_serving(params, cfg)
     report["fleet"] = phase_fleet(params, cfg)
     del params
+    report["parallel"] = phase_parallel(report["trial"]["legs"]["leg1"])
 
     smi = card_line()
     # the main path's case (bf16 at the GPT width) and, beside it, the
@@ -3185,6 +3569,7 @@ def main(argv) -> int:
         "trial_launches": report["trial"]["launches"],
         "serving_launches": report["serving"]["flash_launches"],
         "fleet_launches": report["fleet"]["flash_launches"],
+        "parallel_launches": report["parallel"]["launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

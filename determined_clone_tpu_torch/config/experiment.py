@@ -17,9 +17,9 @@ ignored, as the shim drops them).
 
 A block whose behaviour the port does not have yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item instead of
-training without it: ``observability.enabled: true``, a cloud or
-content-addressed ``checkpoint_storage`` type, and
-``resources.slots_per_trial`` above 1.
+training without it: ``observability.enabled: true`` and a cloud or
+content-addressed ``checkpoint_storage`` type. ``resources.slots_per_trial``
+above 1 is a trial over that many ranks (``exec/launch.py``).
 """
 from __future__ import annotations
 
@@ -67,8 +67,6 @@ _FAULT_ACTIONS = ("error", "delay", "truncate", "exit")
 _FAULT_EXCS = ("fault", "io", "conn")
 _LENGTH_UNITS = {"batches", "records", "epochs"}
 
-_ROADMAP_PARALLELISM = ("ROADMAP.md, Queue 1: parallelism "
-                        "(resources.slots_per_trial > 1)")
 _ROADMAP_TELEMETRY = ("ROADMAP.md, Queue 1: the telemetry branch of the "
                       "training loop and DeviceMemoryMonitor")
 _ROADMAP_STORAGE = "ROADMAP.md, Queue 1: the cloud storage managers"
@@ -145,11 +143,6 @@ class ResourcesConfig:
         if slots < 0:
             raise ConfigError(
                 f"resources.slots_per_trial must be >= 0, got {slots}")
-        if slots > 1:
-            raise NotImplementedError(
-                f"resources.slots_per_trial={slots}: the port trains on one "
-                f"card; multi-card training is not ported yet "
-                f"({_ROADMAP_PARALLELISM})")
         return ResourcesConfig(slots_per_trial=slots)
 
 

@@ -1,7 +1,8 @@
-"""Core API — the port's copy of ``determined_clone_tpu/core`` for one
-rank off-cluster: ``init()``, the train, searcher, preempt and checkpoint
-contexts, and the checkpoint serialization. The master-backed sources,
-``init_unmanaged`` and multi-rank groups wait (``ROADMAP.md``)."""
+"""Core API — the port's copy of ``determined_clone_tpu/core`` off-cluster:
+``init()``, the train, searcher, preempt and checkpoint contexts over one
+rank or the ranks ``exec/launch.py`` starts, and the checkpoint
+serialization. The master-backed sources and ``init_unmanaged`` wait
+(``ROADMAP.md``)."""
 from determined_clone_tpu_torch.core._checkpoint import (
     CheckpointContext,
     CheckpointCorruptError,

@@ -1,13 +1,16 @@
 """CheckpointContext — checkpoint save/restore + registry; the port's
-single-rank copy of ``determined_clone_tpu/core/_checkpoint.py``.
+copy of ``determined_clone_tpu/core/_checkpoint.py``.
 
 It writes what the JAX package writes — ``metadata.json``, a
 ``manifest.json`` of every file's size and sha256, uploaded first, and
 the ``COMMIT`` marker, written last — and validates a restore the same
 way, so a checkpoint of either package passes the other's validation.
-Sharded uploads across ranks come with the parallelism slice, and
-``store_path_async`` (the background upload) waits (``ROADMAP.md``);
-``wait_async``/``abort_async`` are here, with nothing ever in flight.
+Sharded uploads (``shard=True``) are the JAX package's: the chief
+broadcasts the storage id, every rank uploads its own files, the
+per-rank file lists are exchanged, a path written by two ranks is
+refused, and the chief writes the merged manifest. ``store_path_async``
+(the background upload) waits (``ROADMAP.md``); ``wait_async`` and
+``abort_async`` are here, with nothing ever in flight.
 
 The registry (which checkpoints exist, their metadata/resources) is reported
 to the master when on-cluster; the LocalRegistry keeps the same record in a
@@ -228,41 +231,86 @@ class CheckpointContext:
 
     # -- save ---------------------------------------------------------------
 
-    def upload(self, ckpt_dir: str,
-               metadata: Optional[Dict[str, Any]] = None) -> str:
+    def upload(self, ckpt_dir: str, metadata: Optional[Dict[str, Any]] = None,
+               *, shard: bool = False) -> str:
         """Upload a checkpoint directory; returns its new storage_id.
+
+        shard=False: chief-only upload (all ranks may call; only chief acts).
+        shard=True: every rank uploads its own files; the file manifests are
+        merged across ranks (conflicting relative paths are an error, except
+        ``metadata.json`` which only the chief writes).
 
         Commit protocol: ``manifest.json`` (per-file size + digest) is
         uploaded FIRST, in its own storage call, so any partial upload is
         self-identifying; the ``COMMIT`` marker is written after every
-        file is in storage, and only then is the checkpoint published to
-        the registry — restores refuse anything uncommitted."""
+        rank's files are in storage, and only then is the checkpoint
+        published to the registry — restores refuse anything
+        uncommitted."""
+        storage_id, upload_paths = self._coordinate(ckpt_dir, metadata, shard)
+        if upload_paths is not None:
+            self._upload_ordered(ckpt_dir, storage_id, upload_paths)
+        faults.point("checkpoint.post_upload")
+        self._dist.barrier()
+        if self._dist.is_chief:
+            faults.point("checkpoint.commit")
+            self._storage.commit(storage_id, {
+                "trial_id": self._trial_id, "time": time.time()})
+            self._registry.report({
+                "storage_id": storage_id,
+                "trial_id": self._trial_id,
+                "metadata": metadata or {},
+                "time": time.time(),
+                "resources": self._storage.list_files(storage_id),
+            })
+        return storage_id
+
+    def _coordinate(self, ckpt_dir: str, metadata: Optional[Dict[str, Any]],
+                    shard: bool) -> tuple:
+        """The collective part of a save: broadcast the storage id,
+        exchange shard manifests, reject conflicts, write metadata and the
+        merged manifest. Returns (storage_id, upload_paths), upload_paths
+        None when THIS rank has nothing to upload; the chief's list leads
+        with manifest.json so partial uploads always carry their
+        manifest."""
         faults.point("checkpoint.pre_upload")
-        storage_id = str(uuid.uuid4())
+        storage_id = self._dist.broadcast(
+            str(uuid.uuid4()) if self._dist.is_chief else None)
+        if shard:
+            self._write_metadata(ckpt_dir, metadata)
+            my_files = [f for f in _relative_files(ckpt_dir)
+                        if f not in _INTERNAL_FILES
+                        and (f != METADATA_FILE or self._dist.is_chief)]
+            my_entries = _file_entries(ckpt_dir, my_files)
+            all_entries = self._dist.allgather(my_entries)
+            _check_shard_conflicts([sorted(e) for e in all_entries])
+            if not self._dist.is_chief:
+                return storage_id, sorted(my_files)
+            merged: Dict[str, Dict[str, Any]] = {}
+            for entries in all_entries:
+                merged.update(entries)
+            self._write_manifest(ckpt_dir, storage_id, merged)
+            return storage_id, [MANIFEST_FILE] + sorted(my_files)
+        if not self._dist.is_chief:
+            return storage_id, None
         self._write_metadata(ckpt_dir, metadata)
         files = [f for f in _relative_files(ckpt_dir)
                  if f not in _INTERNAL_FILES]
         self._write_manifest(ckpt_dir, storage_id,
                              _file_entries(ckpt_dir, files))
-        self._storage.upload(ckpt_dir, storage_id, paths=[MANIFEST_FILE])
-        if files:
-            self._storage.upload(ckpt_dir, storage_id, paths=files)
-        faults.point("checkpoint.post_upload")
-        faults.point("checkpoint.commit")
-        self._storage.commit(storage_id, {
-            "trial_id": self._trial_id, "time": time.time()})
-        self._registry.report({
-            "storage_id": storage_id,
-            "trial_id": self._trial_id,
-            "metadata": metadata or {},
-            "time": time.time(),
-            "resources": self._storage.list_files(storage_id),
-        })
-        return storage_id
+        return storage_id, [MANIFEST_FILE] + files
+
+    def _upload_ordered(self, ckpt_dir: str, storage_id: str,
+                        paths: List[str]) -> None:
+        """The manifest strictly first, in its own storage call."""
+        if paths and paths[0] == MANIFEST_FILE:
+            self._storage.upload(ckpt_dir, storage_id, paths=paths[:1])
+            paths = paths[1:]
+        if paths:
+            self._storage.upload(ckpt_dir, storage_id, paths=paths)
 
     @contextlib.contextmanager
-    def store_path(self, metadata: Optional[Dict[str, Any]] = None
-                   ) -> Iterator[tuple]:
+    def store_path(self, metadata: Optional[Dict[str, Any]] = None, *,
+                   shard: bool = False) -> Iterator[tuple]:
         """Yield (local_dir, holder); write files into local_dir, and after
         the with-block exits cleanly the upload runs and
         ``holder["storage_id"]`` carries the new checkpoint id."""
@@ -270,7 +318,7 @@ class CheckpointContext:
         try:
             holder: Dict[str, str] = {}
             yield tmp, holder
-            holder["storage_id"] = self.upload(tmp, metadata)
+            holder["storage_id"] = self.upload(tmp, metadata, shard=shard)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -284,6 +332,8 @@ class CheckpointContext:
 
     def _write_metadata(self, ckpt_dir: str,
                         metadata: Optional[Dict[str, Any]]) -> None:
+        if not self._dist.is_chief:
+            return
         meta = dict(metadata or {})
         meta.setdefault("trial_id", self._trial_id)
         with open(os.path.join(ckpt_dir, METADATA_FILE), "w") as f:
@@ -349,8 +399,10 @@ class CheckpointContext:
     # -- delete -------------------------------------------------------------
 
     def delete(self, storage_id: str) -> None:
-        self._storage.delete(storage_id)
-        self._registry.report_deleted(storage_id)
+        if self._dist.is_chief:
+            self._storage.delete(storage_id)
+            self._registry.report_deleted(storage_id)
+        self._dist.barrier()
 
 
 def _relative_files(base: str) -> List[str]:
@@ -359,3 +411,15 @@ def _relative_files(base: str) -> List[str]:
         for f in files:
             out.append(os.path.relpath(os.path.join(root, f), base))
     return sorted(out)
+
+
+def _check_shard_conflicts(all_files: List[List[str]]) -> None:
+    seen: Dict[str, int] = {}
+    for rank, files in enumerate(all_files):
+        for f in files:
+            if f in seen:
+                raise ValueError(
+                    f"sharded checkpoint conflict: {f!r} written by both "
+                    f"rank {seen[f]} and rank {rank}"
+                )
+            seen[f] = rank

@@ -3,7 +3,8 @@ copy of ``determined_clone_tpu/core/_context.py``.
 
 ``init()`` bundles the distributed, train, checkpoint, preempt and
 searcher contexts. Off-cluster every component gets its local form: one
-rank, checkpoints in the config's storage (or a temporary directory),
+rank unless ``distributed`` is given (``exec/launch.py``'s
+``init_from_env()`` returns the rank's context), checkpoints in the config's storage (or a temporary directory),
 metrics in memory (or a JSONL file), preemption from a flag file named by
 ``DCT_PREEMPT_FILE``, and one searcher operation to
 ``searcher.max_length``. A config ``faults:`` block, or else
@@ -109,6 +110,10 @@ def init(
                          or config.checkpoint_storage.container_path or ".")
     else:
         if storage_path is None:
+            if dist.size > 1:
+                raise ValueError(
+                    f"{dist.size} ranks need one checkpoint storage: pass "
+                    f"storage_path or set checkpoint_storage")
             cleanup_dir = tempfile.TemporaryDirectory(prefix="dct-ckpt-")
             storage_path = cleanup_dir.name
         storage = storage_base.build(

@@ -7,8 +7,7 @@ the whole gang exits together (PreemptMode semantics). On TPU the stakes are
 higher than the reference's chief-only decision: all hosts of a slice must
 agree before tearing down the XLA world, so the chief's decision is
 broadcast over the control plane — then the trainer saves and exits.
-The port runs one rank, so the broadcast is the identity; its poll-failure
-count is kept on the watcher (the JAX package also feeds a metrics
+Its poll-failure count is kept on the watcher (the JAX package also feeds a metrics
 registry, which waits for the port's telemetry).
 """
 from __future__ import annotations
@@ -107,6 +106,11 @@ class PreemptContext:
         self._signaled = threading.Event()
 
     def start(self) -> "PreemptContext":
+        if (self._mode == PreemptMode.WORKERS_ASK_CHIEF
+                and self._dist.size > 1):
+            # should_preempt() will be a collective; fail here, not after a
+            # scheduling unit of training is about to be discarded.
+            self._dist._require_transport()
         watch = self._mode == PreemptMode.CHIEF_ONLY or self._dist.is_chief
         if watch and not isinstance(self._source, NeverPreempt):
             self._watcher = _Watcher(self._source, self._interval)

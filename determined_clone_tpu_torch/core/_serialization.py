@@ -18,16 +18,24 @@ numpy arrays and Python numbers; an object with ``tree_flatten()`` and
 a ``tree_unflatten(children)`` class method (the port's ``TrainState``)
 is a node whose children are indexed by position, as the JAX
 ``TrainState`` registers them. Python ints are saved as int32 and floats
-as float32, the dtypes JAX gives those leaves. One host writes one
-shard; the JAX reader takes it unchanged, and the port reads a JAX
-single-host checkpoint.
+as float32, the dtypes JAX gives those leaves.
+
+Sharded saves: a DTensor leaf is written as the JAX package writes an
+array that is not fully addressable — each rank its own block, keyed
+``{flat key}#{rank}``, with the block's global ``index`` in the
+manifest; a block held by several ranks (replicated over some mesh axes)
+is written once, by the rank at coordinate 0 of those axes. Each rank
+writes ``shard-{rank}.npz`` and ``manifest-{rank}.json``; the readers of
+both packages merge the manifests and assemble the global arrays. A
+load whose ``like`` holds DTensors places each rank's block of the
+assembled array on the same mesh and placements.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,10 +68,12 @@ def _is_leaf(node: Any) -> bool:
                              float, bool))
 
 
-def tree_paths_and_leaves(tree: Any, prefix: str = ""
+def tree_paths_and_leaves(tree: Any, prefix: str = "", *,
+                          is_leaf: Optional[Callable[[Any], bool]] = None
                           ) -> List[Tuple[str, Any]]:
-    """Every leaf of ``tree`` with its JAX tree path; dict keys sorted."""
-    if _is_leaf(tree):
+    """Every leaf of ``tree`` with its JAX tree path; dict keys sorted.
+    ``is_leaf`` marks further nodes as leaves."""
+    if _is_leaf(tree) or (is_leaf is not None and is_leaf(tree)):
         return [(prefix, tree)]
     kids = _children(tree)
     if isinstance(tree, dict):
@@ -71,17 +81,19 @@ def tree_paths_and_leaves(tree: Any, prefix: str = ""
     out: List[Tuple[str, Any]] = []
     for key, child in kids:
         out += tree_paths_and_leaves(child, f"{prefix}/{key}" if prefix
-                                     else key)
+                                     else key, is_leaf=is_leaf)
     return out
 
 
 def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any,
-                       prefix: str = "") -> Any:
+                       prefix: str = "", *,
+                       is_leaf: Optional[Callable[[Any], bool]] = None
+                       ) -> Any:
     """``tree`` rebuilt with every leaf replaced by ``fn(path, leaf)``."""
-    if _is_leaf(tree):
+    if _is_leaf(tree) or (is_leaf is not None and is_leaf(tree)):
         return fn(prefix, tree)
     new = [tree_map_with_path(fn, child, f"{prefix}/{key}" if prefix
-                              else key)
+                              else key, is_leaf=is_leaf)
            for key, child in _children(tree)]
     if isinstance(tree, dict):
         return dict(zip(tree.keys(), new))
@@ -109,13 +121,42 @@ def _to_numpy(leaf: Any) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _is_dtensor(leaf: Any) -> bool:
+    return isinstance(leaf, torch.Tensor) and hasattr(leaf, "placements")
+
+
+def _dtensor_entry(key: str, path: str, leaf: Any, host_id: int,
+                   arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    from torch.distributed.tensor import Shard
+
+    from determined_clone_tpu_torch.parallel.sharding import shard_index
+
+    mesh, pl = leaf.device_mesh, leaf.placements
+    coord = mesh.get_coordinate()
+    local = _to_numpy(leaf.to_local())
+    entry: Dict[str, Any] = {"path": path, "global_shape": list(leaf.shape),
+                             "dtype": str(local.dtype), "blocks": []}
+    # a replicated block is written by its first holder only
+    if all(c == 0 for md, c in enumerate(coord)
+           if not isinstance(pl[md], Shard)):
+        bkey = f"{key}#{host_id}"
+        arrays[bkey] = local
+        entry["blocks"].append({"key": bkey, "index": shard_index(
+            leaf.shape, mesh, pl)})
+    return entry
+
+
 def save_pytree(ckpt_dir: str, tree: Any, *, host_id: int = 0) -> None:
-    """Save ``tree`` under ckpt_dir as this host's shard."""
+    """Save ``tree`` under ckpt_dir as this host's (rank's) shard."""
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays: Dict[str, np.ndarray] = {}
     manifest: Dict[str, Any] = {"leaves": {}, "format": 2, "host": host_id}
     for path, leaf in tree_paths_and_leaves(tree):
         key = _flat_key(path)
+        if _is_dtensor(leaf):
+            manifest["leaves"][key] = _dtensor_entry(key, path, leaf,
+                                                     host_id, arrays)
+            continue
         arr = _to_numpy(leaf)
         arrays[key] = arr
         manifest["leaves"][key] = {
@@ -132,7 +173,20 @@ def save_pytree(ckpt_dir: str, tree: Any, *, host_id: int = 0) -> None:
 def _from_numpy(arr: np.ndarray, ref: Any) -> Any:
     """A loaded array in the kind of leaf ``ref`` is: a tensor on ref's
     device (the checkpoint's dtype, as JAX loads it), a Python number, or
-    the array itself."""
+    the array itself. A DTensor ``ref`` gets a DTensor of this rank's
+    block, on ref's mesh and placements."""
+    if _is_dtensor(ref):
+        from torch.distributed.tensor import DTensor
+
+        from determined_clone_tpu_torch.parallel.sharding import local_block
+
+        block = local_block(torch.from_numpy(arr), ref.device_mesh,
+                            ref.placements)
+        return DTensor.from_local(
+            block.to(ref.to_local().device, copy=True,
+                     memory_format=torch.contiguous_format), ref.device_mesh,
+            ref.placements, run_check=False, shape=ref.shape,
+            stride=ref.stride())
     if isinstance(ref, torch.Tensor):
         return torch.from_numpy(arr).to(ref.device)
     if isinstance(ref, bool):

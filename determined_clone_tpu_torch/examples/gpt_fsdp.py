@@ -5,17 +5,16 @@ GPT-2 small: 12 layers, d 768, 12 heads, d_ff 3072, vocab 50304, seq
 
 The optimizer is the JAX trial's: ``chain(clip_by_global_norm(1.0),
 adamw(lr, b1=0.9, b2=0.95, weight_decay))``. ``attention_impl: auto``
-runs the CUDA flash-attention kernel on the card. The port trains on one
-card: a ``mesh`` hparam whose axes multiply to more than 1 raises, since
-sharded training comes with the parallelism slice (``ROADMAP.md``).
+runs the CUDA flash-attention kernel on the card. The ``mesh`` hparam
+picks the layout, as in the JAX trial: ``fsdp.yaml``'s ``{fsdp: 8}`` with
+``slots_per_trial: 8`` runs on 8 ranks started by ``exec/launch.py``,
+placed by ``GPT_SHARDING_RULES``.
 
 Data: deterministic synthetic token streams with bigram structure (each
 token's successor is drawn from a per-token distribution), generated as
 the JAX trial generates them, so both trials see the same batches.
 """
 from __future__ import annotations
-
-import math
 
 import numpy as np
 
@@ -41,12 +40,6 @@ class GPTTrial(TorchTrial):
     def __init__(self, context):
         super().__init__(context)
         get = context.get_hparam
-        mesh = get("mesh") or {}
-        if math.prod(int(v) for v in mesh.values()) > 1:
-            raise NotImplementedError(
-                f"mesh {mesh}: sharded training is not ported yet "
-                f"(ROADMAP.md, Queue 1: parallelism); drop the mesh hparam "
-                f"to train on one card")
         self.cfg = gpt.GPTConfig(
             vocab_size=int(get("vocab_size", 50304)),
             n_layers=int(get("n_layers", 12)),
@@ -72,6 +65,9 @@ class GPTTrial(TorchTrial):
 
     def loss(self, params, batch, seed):
         return gpt.loss_fn(params, self.cfg, batch[:, :-1], batch[:, 1:]), {}
+
+    def sharding_rules(self):
+        return gpt.GPT_SHARDING_RULES
 
     def training_data(self):
         bs, T = self.global_batch_size, self.seq_len

@@ -13,8 +13,21 @@ attention), the paged prefill/decode forward the serving engine runs
 (``forward_paged_logits``), and the identity-layer helpers that build a
 speculative testbed (``extend_with_identity_layers``,
 ``slice_prefix_layers``). The paged forward has fixed shapes and no host
-sync, so the engine can capture it in a CUDA graph. MoE and pipelining
-come in later slices.
+sync, so the engine can capture it in a CUDA graph. ``moe_experts > 0``
+replaces each block's MLP by the routed expert FFN (``ops/moe.py``), in
+training and in the paged forward, whose capacity comes from that call's
+``B·T`` (padding rows included), as in the JAX package.
+
+Over a mesh: when the parameters are DTensors placed by
+``GPT_SHARDING_RULES`` (``parallel/sharding.py``) and the batch is a
+DTensor split over ``dp`` × ``fsdp``, ``loss_fn`` runs each rank's share
+of the JAX program (``parallel/spmd.py``): weights sharded over ``fsdp``
+are all-gathered per layer (FSDP); ``tp`` splits the heads (the flash
+kernel runs on the rank's own heads), the MLP width and the vocabulary
+(a vocab-parallel embedding and cross-entropy, whose logsumexp spans
+``tp``); ``ep`` splits the experts; the loss is the global batch's. The
+``pp`` pipeline and the ``sp`` attention modes are the second half of the
+parallelism slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -52,8 +65,22 @@ from determined_clone_tpu_torch.ops.layers import (
     softmax_cross_entropy,
     trunc_normal,
 )
+from determined_clone_tpu_torch.ops.moe import moe_ffn
+from determined_clone_tpu_torch.parallel.sharding import (
+    P,
+    ShardingRules,
+    batch_spec,
+    placements_for,
+)
+from determined_clone_tpu_torch.parallel.spmd import (
+    SpmdContext,
+    local_rows,
+    spmd_of,
+)
 
 Params = Dict[str, Any]
+ROADMAP_PIPELINE = ("ROADMAP.md, Queue 1: parallelism, second half "
+                    "(the pp pipeline)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,10 +109,6 @@ class GPTConfig:
     moe_aux_weight: float = 0.01
     pipeline_microbatches: int = 0
 
-    def __post_init__(self) -> None:
-        if self.moe_experts > 0:
-            raise NotImplementedError("MoE GPT: not ported yet")
-
     @property
     def head_dim(self) -> int:
         assert self.d_model % self.n_heads == 0
@@ -110,6 +133,35 @@ def resolved_attention_impl(cfg: GPTConfig, device: DeviceLike) -> str:
     return impl
 
 
+# Megatron-style TP rules + explicit fsdp specs, the JAX package's.
+# Column-parallel up-projections shard the output dim on tp; row-parallel
+# down-projections shard the input dim. Stacked block leaves have a leading
+# [L] layer dim; with ``pipelined=True`` that dim is sliced over pp.
+def sharding_rules(pipelined: bool = False) -> ShardingRules:
+    lead = "pp" if pipelined else None
+    return ShardingRules(rules=[
+        (r"embed/table$",            P("tp", "fsdp")),       # [V, D] vocab-parallel
+        (r"blocks/.*attn_qkv/kernel$",  P(lead, "fsdp", "tp")),  # [L, D, 3D] column
+        (r"blocks/.*attn_out/kernel$",  P(lead, "tp", "fsdp")),  # [L, D, D]  row
+        (r"blocks/.*mlp_up/kernel$",    P(lead, "fsdp", "tp")),  # [L, D, F]  column
+        (r"blocks/.*mlp_down/kernel$",  P(lead, "tp", "fsdp")),  # [L, F, D]  row
+        (r"blocks/moe/router/kernel$",  P(lead)),               # [L, D, E] small
+        (r"blocks/moe/up/kernel$",      P(lead, "ep", "fsdp", "tp")),   # [L,E,D,F]
+        (r"blocks/moe/down/kernel$",    P(lead, "ep", "tp", "fsdp")),   # [L,E,F,D]
+        (r"blocks/moe/.*bias$",         P(lead, "ep")),         # [L, E, ·]
+        (r"blocks/.*(bias|scale)$",     P(lead)),
+        (r"lm_head/kernel$",         P("fsdp", "tp")),       # [D, V]
+        (r"final_norm/",             P()),
+    ])
+
+
+GPT_SHARDING_RULES = sharding_rules(pipelined=False)
+
+# Activation specs: batch over (dp, fsdp), sequence over sp, heads/features over tp.
+TOKENS_SPEC = P(("dp", "fsdp"), "sp")
+ACTIVATION_SPEC = P(("dp", "fsdp"), "sp", "tp")
+
+
 def init(gen: torch.Generator, cfg: GPTConfig,
          device: DeviceLike = "cuda") -> Params:
     """Stacked-block GPT params drawn from ``gen`` (on the generator's
@@ -129,66 +181,169 @@ def init(gen: torch.Generator, cfg: GPTConfig,
         return torch.ones(shape, dtype=dt, device=dev)
 
     out_std = 0.02 / (2 * L) ** 0.5
-    params: Params = {
-        "embed": embedding_init(gen, cfg.vocab_size, D, dtype=dt, device=dev),
-        "blocks": {
-            "ln1": {"scale": ones(L, D), "bias": zeros(L, D)},
-            "attn_qkv": {"kernel": stacked((D, 3 * D)),
-                         "bias": zeros(L, 3 * D)},
-            "attn_out": {"kernel": stacked((D, D), stddev=out_std),
-                         "bias": zeros(L, D)},
-            "ln2": {"scale": ones(L, D), "bias": zeros(L, D)},
-            "mlp_up": {"kernel": stacked((D, F)), "bias": zeros(L, F)},
-            "mlp_down": {"kernel": stacked((F, D), stddev=out_std),
-                         "bias": zeros(L, D)},
-        },
-        "final_norm": layernorm_init(D, dtype=dt, device=dev),
+    embed = embedding_init(gen, cfg.vocab_size, D, dtype=dt, device=dev)
+    blocks: Params = {
+        "ln1": {"scale": ones(L, D), "bias": zeros(L, D)},
+        "attn_qkv": {"kernel": stacked((D, 3 * D)), "bias": zeros(L, 3 * D)},
+        "attn_out": {"kernel": stacked((D, D), stddev=out_std),
+                     "bias": zeros(L, D)},
+        "ln2": {"scale": ones(L, D), "bias": zeros(L, D)},
     }
+    if cfg.moe_experts > 0:
+        E = cfg.moe_experts
+        blocks["moe"] = {
+            "router": {"kernel": stacked((D, E))},
+            "up": {"kernel": stacked((E, D, F)), "bias": zeros(L, E, F)},
+            "down": {"kernel": stacked((E, F, D), stddev=out_std),
+                     "bias": zeros(L, E, D)},
+        }
+    else:
+        blocks["mlp_up"] = {"kernel": stacked((D, F)), "bias": zeros(L, F)}
+        blocks["mlp_down"] = {"kernel": stacked((F, D), stddev=out_std),
+                              "bias": zeros(L, D)}
+    params: Params = {"embed": embed, "blocks": blocks,
+                      "final_norm": layernorm_init(D, dtype=dt, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, D, cfg.vocab_size, bias=False,
                                        dtype=dt, device=dev)
     return params
 
 
+def _stacked(blocks: Params, pick) -> Params:
+    """The stacked blocks with ``pick`` applied to every leaf."""
+    return {k: _stacked(v, pick) if isinstance(v, dict) else pick(v)
+            for k, v in blocks.items()}
+
+
 def _layer(params: Params, i: int) -> Params:
     """Layer ``i``'s slice of the stacked blocks (views, no copies)."""
-    return {name: {k: v[i] for k, v in sub.items()}
-            for name, sub in params["blocks"].items()}
+    return _stacked(params["blocks"], lambda v: v[i])
+
+
+def _layer_local(sp: SpmdContext, cfg: GPTConfig, params: Params,
+                 i: int) -> Params:
+    """Layer ``i``'s weights as this rank computes with them: gathered
+    over every axis but ``tp`` and ``ep``; this rank's heads of the fused
+    q|k|v projection, its block of the MLP width (or of the experts and
+    their width) and its rows of the row-parallel projections."""
+    b = params["blocks"]
+    H, hd, tp = cfg.n_heads, cfg.head_dim, sp.tp
+
+    def leaf(name, key, **kw):
+        return sp.local(b[name][key], index=i, **kw)
+
+    def heads(t):  # [..., 3D] -> this rank's heads of q, k and v
+        if tp == 1:
+            return t
+        Hl = H // tp
+        t = t.reshape(*t.shape[:-1], 3, H, hd)
+        t = t[..., sp.tp_rank * Hl:(sp.tp_rank + 1) * Hl, :]
+        return t.reshape(*t.shape[:-3], 3 * Hl * hd)
+
+    out: Params = {
+        "ln1": {k: leaf("ln1", k) for k in b["ln1"]},
+        "ln2": {k: leaf("ln2", k) for k in b["ln2"]},
+        "attn_qkv": {"kernel": heads(leaf("attn_qkv", "kernel", split=("tp",))),
+                     "bias": heads(leaf("attn_qkv", "bias", split=("tp",)))},
+        "attn_out": {"kernel": leaf("attn_out", "kernel", keep={"tp": 0}),
+                     "bias": leaf("attn_out", "bias")},
+    }
+    if cfg.moe_experts > 0:
+        m = b["moe"]
+
+        def moe(name, key, **kw):
+            return sp.local(m[name][key], index=i, **kw)
+
+        out["moe"] = {
+            "router": {"kernel": moe("router", "kernel")},
+            "up": {"kernel": moe("up", "kernel", keep={"ep": 0, "tp": 2}),
+                   "bias": moe("up", "bias", keep={"ep": 0, "tp": 1})},
+            "down": {"kernel": moe("down", "kernel", keep={"ep": 0, "tp": 1}),
+                     "bias": moe("down", "bias", keep={"ep": 0})},
+        }
+    else:
+        out["mlp_up"] = {"kernel": leaf("mlp_up", "kernel", keep={"tp": 1}),
+                         "bias": leaf("mlp_up", "bias", keep={"tp": 0})}
+        out["mlp_down"] = {"kernel": leaf("mlp_down", "kernel", keep={"tp": 0}),
+                           "bias": leaf("mlp_down", "bias")}
+    return out
+
+
+def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+             sp: Optional[SpmdContext]) -> torch.Tensor:
+    """Dropout whose mask is drawn at the global batch shape and cut to
+    this rank's rows, so a mesh run draws the one-rank run's masks."""
+    if sp is None or sp.batch_shards == 1:
+        return dropout(x, rate, gen)
+    B = x.shape[0]
+    return dropout(x, rate, gen,
+                   rows=(sp.batch_index * B, sp.batch_shards * B))
 
 
 def _qkv(cfg: GPTConfig, bp: Params, x: torch.Tensor,
-         positions: torch.Tensor):
+         positions: torch.Tensor, sp: Optional[SpmdContext] = None):
     B, T, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
     h = layernorm(bp["ln1"], x)
+    if sp is not None:
+        h = sp.copy_to(h, "tp")
     qkv = dense(bp["attn_qkv"], h, compute_dtype=cfg.compute_dtype)
-    q, k, v = torch.split(qkv, cfg.d_model, dim=-1)
+    H = qkv.shape[-1] // (3 * hd)   # this rank's heads
+    q, k, v = torch.split(qkv, H * hd, dim=-1)
     q = rotary_embedding(q.reshape(B, T, H, hd), positions)
     k = rotary_embedding(k.reshape(B, T, H, hd), positions)
     return q, k, v.reshape(B, T, H, hd)
 
 
+def _row(p: Params, x: torch.Tensor, cd, sp: Optional[SpmdContext]
+         ) -> torch.Tensor:
+    """A row-parallel dense layer: the product of this rank's rows,
+    summed across ``tp``, then the bias."""
+    if sp is None:
+        return dense(p, x, compute_dtype=cd)
+    y = sp.reduce_from(x.to(cd) @ p["kernel"].to(cd), "tp")
+    return y + p["bias"].to(y.dtype)
+
+
+def _mlp(cfg: GPTConfig, bp: Params, h: torch.Tensor,
+         sp: Optional[SpmdContext]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN half: the dense MLP or the routed experts → (h, aux)."""
+    cd = cfg.compute_dtype
+    if cfg.moe_experts > 0:
+        return moe_ffn(bp["moe"], h, k=cfg.moe_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       compute_dtype=cd, comm=sp)
+    if sp is not None:
+        h = sp.copy_to(h, "tp")
+    h = gelu(dense(bp["mlp_up"], h, compute_dtype=cd))
+    return (_row(bp["mlp_down"], h, cd, sp),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
 def _finish_block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
                   attn: torch.Tensor,
-                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                  gen: Optional[torch.Generator] = None,
+                  sp: Optional[SpmdContext] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Output projection, residual, and the MLP half of the block; with
-    ``gen``, dropout on both branches before their residual adds."""
-    B, T, D = x.shape
-    attn = dense(bp["attn_out"], attn.reshape(B, T, D),
-                 compute_dtype=cfg.compute_dtype)
-    x = x + dropout(attn, cfg.dropout, gen)
-    h = layernorm(bp["ln2"], x)
-    h = dense(bp["mlp_up"], h, compute_dtype=cfg.compute_dtype)
-    h = gelu(h)
-    h = dense(bp["mlp_down"], h, compute_dtype=cfg.compute_dtype)
-    return x + dropout(h, cfg.dropout, gen)
+    ``gen``, dropout on both branches before their residual adds.
+    Returns (x, aux), aux the MoE load-balancing loss (0 when dense)."""
+    B, T, _ = x.shape
+    attn = _row(bp["attn_out"], attn.reshape(B, T, -1), cfg.compute_dtype,
+                sp)
+    x = x + _dropout(attn, cfg.dropout, gen, sp)
+    h, aux = _mlp(cfg, bp, layernorm(bp["ln2"], x), sp)
+    return x + _dropout(h, cfg.dropout, gen, sp), aux
 
 
 def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
            positions: torch.Tensor,
-           dropout_seed: Optional[int] = None) -> torch.Tensor:
+           dropout_seed: Optional[int] = None,
+           sp: Optional[SpmdContext] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN transformer block. x: [B, T, D] in compute dtype.
-    Dropout is on when ``dropout_seed`` (this layer's) is given."""
+    Dropout is on when ``dropout_seed`` (this layer's) is given. Returns
+    (x, aux)."""
     # Remat trap: torch.utils.checkpoint restores the global RNG state for
     # the recompute, never an explicit generator's. A generator carried
     # from block to block would draw other masks in the recompute and give
@@ -200,7 +355,7 @@ def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
         gen = torch.Generator(device=x.device)
         gen.manual_seed(dropout_seed)
     T = x.shape[1]
-    q, k, v = _qkv(cfg, bp, x, positions)
+    q, k, v = _qkv(cfg, bp, x, positions, sp)
     impl = resolved_attention_impl(cfg, x.device)
     blk = min(cfg.attention_block_size, 128)
     if impl == "mha":
@@ -225,13 +380,66 @@ def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
                                block_k=blk)
         if pad:
             attn = attn[:, :T]
-    return _finish_block(cfg, bp, x, attn, gen)
+    return _finish_block(cfg, bp, x, attn, gen, sp)
 
 
-def _logits(params: Params, cfg: GPTConfig, x: torch.Tensor) -> torch.Tensor:
+def _block_at(cfg: GPTConfig, params: Params, i: int, x: torch.Tensor,
+              positions: torch.Tensor, dropout_seed: Optional[int],
+              sp: Optional[SpmdContext]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block ``i``. Over a mesh its weights are gathered here, inside the
+    remat region, so the backward gathers them again (FSDP) instead of
+    keeping every layer's gathered weights."""
+    bp = _layer(params, i) if sp is None else _layer_local(sp, cfg, params, i)
+    return _block(cfg, bp, x, positions, dropout_seed, sp)
+
+
+def _embed(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
+           sp: Optional[SpmdContext]) -> torch.Tensor:
+    """Token embeddings in the compute dtype; over ``tp`` each rank looks
+    up the ids of its vocabulary block and the blocks are summed."""
+    if sp is None:
+        return embedding(params["embed"], tokens,
+                         compute_dtype=cfg.compute_dtype)
+    table = sp.local(params["embed"]["table"], keep={"tp": 0})
+    if sp.tp == 1:
+        return table[tokens].to(cfg.compute_dtype)
+    Vl = table.shape[0]
+    ids = tokens.long() - sp.tp_rank * Vl
+    inside = (ids >= 0) & (ids < Vl)
+    x = table[ids.clamp(0, Vl - 1)] * inside[..., None]
+    return sp.reduce_from(x, "tp").to(cfg.compute_dtype)
+
+
+def _logits(params: Params, cfg: GPTConfig, x: torch.Tensor,
+            sp: Optional[SpmdContext] = None) -> torch.Tensor:
+    """Logits in fp32; over ``tp``, this rank's block of the vocabulary."""
+    if sp is None:
+        if cfg.tie_embeddings:
+            return x.float() @ params["embed"]["table"].float().T
+        return dense(params["lm_head"], x, compute_dtype=torch.float32)
+    x = sp.copy_to(x.float(), "tp")
     if cfg.tie_embeddings:
-        return x.float() @ params["embed"]["table"].float().T
-    return dense(params["lm_head"], x, compute_dtype=torch.float32)
+        table = sp.local(params["embed"]["table"], keep={"tp": 0})
+        return x @ table.float().T
+    return x @ sp.local(params["lm_head"]["kernel"], keep={"tp": 1}).float()
+
+
+def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                   sp: Optional[SpmdContext]) -> torch.Tensor:
+    """Per-token loss; over ``tp`` the logits are this rank's vocabulary
+    block, and the logsumexp and the target's logit span all blocks."""
+    if sp is None or sp.tp == 1:
+        return softmax_cross_entropy(logits, targets)
+    Vl = logits.shape[-1]
+    with torch.no_grad():
+        m = sp.sum_(logits.max(-1).values, "tp",
+                    op=torch.distributed.ReduceOp.MAX)
+    z = sp.reduce_from((logits - m[..., None]).exp().sum(-1), "tp")
+    t = targets.long() - sp.tp_rank * Vl
+    inside = (t >= 0) & (t < Vl)
+    picked = logits.gather(-1, t.clamp(0, Vl - 1)[..., None]).squeeze(-1)
+    picked = sp.reduce_from(picked * inside, "tp")
+    return m + z.log() - picked
 
 
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -256,54 +464,94 @@ def _forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
              training: bool = False, dropout_seed: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward → (logits [B, T, V] fp32, aux scalar). tokens: int [B, T]
-    on the parameters' device. ``aux`` is the MoE load-balancing loss,
-    0 for this dense GPT.
+    on the parameters' device. ``aux`` is the MoE load-balancing loss
+    summed over the layers, 0 for the dense GPT. Over a mesh (DTensor
+    parameters) the logits are this rank's rows and vocabulary block.
 
     Dropout is on only when ``training``, ``dropout_seed`` is given and
     ``cfg.dropout > 0``; the per-layer seeds are derived before the loop,
     as the JAX package splits per-layer keys outside its scan. With
     ``cfg.remat`` and autograd recording, each block is checkpointed under
     :func:`_remat_policy`."""
+    sp = spmd_of(params["embed"]["table"])
+    tokens = local_rows(tokens)
+    if (sp is not None and sp.sizes.get("pp", 1) > 1
+            and cfg.pipeline_microbatches > 1):
+        raise NotImplementedError(
+            f"pipeline_microbatches={cfg.pipeline_microbatches} over pp="
+            f"{sp.sizes['pp']}: the GPipe pipeline is not ported yet "
+            f"({ROADMAP_PIPELINE})")
     T = tokens.shape[1]
     positions = torch.arange(T, device=tokens.device)
-    x = embedding(params["embed"], tokens, compute_dtype=cfg.compute_dtype)
+    x = _embed(params, cfg, tokens, sp)
     seeds = [None] * cfg.n_layers
     if training and dropout_seed is not None and cfg.dropout > 0.0:
         seeds = [fold_seed(dropout_seed, i) for i in range(cfg.n_layers)]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seed in enumerate(seeds):
         if remat:
-            x = checkpoint(_block, cfg, _layer(params, i), x, positions,
-                           seed, use_reentrant=False,
-                           context_fn=_remat_context)
+            x, aux = checkpoint(_block_at, cfg, params, i, x, positions,
+                                seed, sp, use_reentrant=False,
+                                context_fn=_remat_context)
         else:
-            x = _block(cfg, _layer(params, i), x, positions, seed)
-    x = layernorm(params["final_norm"], x)
-    logits = _logits(params, cfg, x).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _block_at(cfg, params, i, x, positions, seed, sp)
+        aux_total = aux_total + aux
+    norm = params["final_norm"]
+    if sp is not None:
+        norm = {k: sp.local(v) for k, v in norm.items()}
+    x = layernorm(norm, x)
+    return _logits(params, cfg, x, sp).float(), aux_total
 
 
 def apply(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
           training: bool = False,
           dropout_seed: Optional[int] = None) -> torch.Tensor:
-    """Forward pass → logits [B, T, V] (fp32); see :func:`_forward`."""
+    """Forward pass → logits [B, T, V] (fp32); see :func:`_forward`. Over
+    a mesh, a DTensor split over the batch axes."""
     logits, _ = _forward(params, cfg, tokens, training=training,
                          dropout_seed=dropout_seed)
-    return logits
+    sp = spmd_of(params["embed"]["table"])
+    if sp is None:
+        return logits
+    from torch.distributed.tensor import DTensor
+
+    logits = sp.gather_replicated(logits, logits.dim() - 1, "tp")
+    B, T, V = logits.shape
+    return DTensor.from_local(
+        logits, sp.mesh, placements_for(batch_spec(2), sp.mesh),
+        run_check=False, shape=(B * sp.batch_shards, T, V),
+        stride=(T * V, V, 1))
 
 
 def loss_fn(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
             targets: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
             training: bool = False,
             dropout_seed: Optional[int] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy (fp32). targets/mask: [B, T]."""
-    logits, _ = _forward(params, cfg, tokens, training=training,
-                         dropout_seed=dropout_seed)
-    per_tok = softmax_cross_entropy(logits, targets)
-    if mask is None:
-        return per_tok.mean()
-    maskf = mask.float()
-    return (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
+    """Mean next-token cross-entropy (fp32), plus ``moe_aux_weight`` times
+    the MoE aux loss. targets/mask: [B, T]. Over a mesh the mean is the
+    global batch's, the same value on every rank, and each rank's
+    backward yields its own rows' share of the gradients."""
+    logits, aux = _forward(params, cfg, tokens, training=training,
+                           dropout_seed=dropout_seed)
+    sp = spmd_of(params["embed"]["table"])
+    per_tok = _cross_entropy(logits, local_rows(targets), sp)
+    if sp is None:
+        if mask is None:
+            ce = per_tok.mean()
+        else:
+            maskf = mask.float()
+            ce = (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
+    elif mask is None:
+        # the blocks are equal: the global mean is the mean of the means
+        ce = sp.batch_sum(per_tok.mean() / sp.batch_shards)
+    else:
+        maskf = local_rows(mask).float()
+        count = sp.batch_sum_(maskf.sum()).clamp_min(1.0)
+        ce = sp.batch_sum((per_tok * maskf).sum() / count)
+    if cfg.moe_experts > 0:
+        ce = ce + cfg.moe_aux_weight * aux
+    return ce
 
 
 def _check_scratch(pool: torch.Tensor) -> None:
@@ -356,7 +604,7 @@ def _block_paged(cfg: GPTConfig, bp: Params, x: torch.Tensor,
     # slot j of the gathered context is sequence position j
     attn = mha(q, k_flat[gather_idx], v_flat[gather_idx], causal=False,
                mask=attn_mask)
-    return _finish_block(cfg, bp, x, attn)
+    return _finish_block(cfg, bp, x, attn)[0]
 
 
 def _paged_backbone(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
@@ -471,6 +719,8 @@ def extend_with_identity_layers(params: Params, cfg: GPTConfig,
     """
     if extra_layers <= 0:
         return params, cfg
+    if cfg.moe_experts > 0:
+        raise ValueError("identity extension supports dense blocks only")
     zero_adds = ("attn_out", "mlp_down")
 
     def pad(name: str, leaf: torch.Tensor) -> torch.Tensor:
@@ -495,8 +745,7 @@ def slice_prefix_layers(params: Params, cfg: GPTConfig, n_layers: int
         raise ValueError(f"n_layers must be in [1, {cfg.n_layers}], "
                          f"got {n_layers}")
     out = dict(params)
-    out["blocks"] = {name: {k: v[:n_layers] for k, v in sub.items()}
-                     for name, sub in params["blocks"].items()}
+    out["blocks"] = _stacked(params["blocks"], lambda v: v[:n_layers])
     return out, dataclasses.replace(cfg, n_layers=n_layers)
 
 

@@ -7,7 +7,8 @@ is the streaming form, O(T·block) memory: the GPT block's "blockwise"
 attention and the recompute that the flash kernel's backward
 differentiates. The public functions keep the JAX package's
 ``[B, T, H, D]`` layout. ``ring_attention`` and ``ulysses_attention``
-belong to the parallelism slice.
+(sequence parallelism over the ``sp`` mesh axis) belong to the second
+half of the parallelism slice and raise until then.
 """
 from __future__ import annotations
 
@@ -105,6 +106,26 @@ def causal_blockwise_attention(q: torch.Tensor, k: torch.Tensor,
             v[:, k0:k0 + block_size], bmask, scale)
     out = acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]
     return out.to(dtype)
+
+
+ROADMAP_SP = ("ROADMAP.md, Queue 1: parallelism, second half (ring and "
+              "Ulysses attention over sp)")
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   axis_name: str, axis_index: Optional[torch.Tensor] = None,
+                   axis_size: int = 1) -> torch.Tensor:
+    """Ring attention over the ``sp`` axis: not ported yet."""
+    raise NotImplementedError(f"ring_attention over {axis_name!r} is not "
+                              f"ported yet ({ROADMAP_SP})")
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      axis_name: str, causal: bool = True) -> torch.Tensor:
+    """Ulysses (all-to-all) attention over the ``sp`` axis: not ported
+    yet."""
+    raise NotImplementedError(f"ulysses_attention over {axis_name!r} is not "
+                              f"ported yet ({ROADMAP_SP})")
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, *,

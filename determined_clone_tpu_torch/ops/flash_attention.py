@@ -174,7 +174,12 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor,
     asynchronous copies. The stride of a dimension of size 1 is never
     used, so it is passed as 0 and not checked. Raises ``ValueError``;
     returns ``(B, H, Tq, Tk, D, strides)``, ``strides`` the 9 element
-    strides (batch, time, head) of q, k, v."""
+    strides (batch, time, head) of q, k, v. A DTensor is refused: the
+    kernel takes each rank's local q, k, v (``models/gpt.py`` passes its
+    own heads under ``tp``), never a view it would have to gather."""
+    if any(hasattr(t, "placements") for t in (q, k, v)):
+        raise ValueError("flash_attention kernel takes local tensors, not "
+                         "DTensors: pass each rank's own q, k, v")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, D]")
     B, Tq, H, D = q.shape

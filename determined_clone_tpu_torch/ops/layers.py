@@ -268,17 +268,25 @@ def fold_seed(seed: int, *data: int) -> int:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``; ``x`` as it is when ``generator``
     is None (not training) or ``rate`` is 0. The mask is drawn from
     ``generator``, which must live on ``x``'s device — an explicit
     generator, never the global one, so a recompute that seeds a fresh
-    generator alike draws the same mask (``models/gpt.py``)."""
+    generator alike draws the same mask (``models/gpt.py``). With
+    ``rows=(first, total)``, ``x`` is rows ``first:first + len(x)`` of a
+    batch of ``total`` rows: the mask is drawn at the whole batch's shape
+    and cut to those rows, so every split of the batch draws the same
+    masks."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if rows is None else (rows[1], *x.shape[1:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        mask = mask[rows[0]:rows[0] + x.shape[0]]
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 

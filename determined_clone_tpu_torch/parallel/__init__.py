@@ -1,0 +1,49 @@
+"""Parallelism: meshes and partition specs — the port of
+``determined_clone_tpu/parallel`` without the pipeline (``pipeline_*``)
+and ``scaling_bench``, which come with the second half of the slice
+(``ROADMAP.md``). ``spmd`` holds the per-rank collectives the JAX package
+leaves to XLA's partitioner.
+"""
+from determined_clone_tpu_torch.parallel.mesh import (
+    AXES,
+    MeshSpec,
+    data_parallel_submesh_size,
+    make_mesh,
+    make_multislice_mesh,
+    mesh_axis_size,
+    single_device_mesh,
+)
+from determined_clone_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    P,
+    PartitionSpec,
+    ShardingRules,
+    batch_seq_spec,
+    batch_spec,
+    constrain,
+    placements_for,
+    replicated,
+    shard_put,
+    tree_paths_and_leaves,
+)
+
+__all__ = [
+    "AXES",
+    "MeshSpec",
+    "data_parallel_submesh_size",
+    "make_mesh",
+    "make_multislice_mesh",
+    "mesh_axis_size",
+    "single_device_mesh",
+    "NamedSharding",
+    "P",
+    "PartitionSpec",
+    "ShardingRules",
+    "batch_spec",
+    "batch_seq_spec",
+    "constrain",
+    "placements_for",
+    "replicated",
+    "shard_put",
+    "tree_paths_and_leaves",
+]

@@ -70,11 +70,18 @@ def mlp_flops_per_token(d_model: int, d_ff: int, n_layers: int, *,
 
 def moe_layer_flops(n_tokens: int, d_model: int, d_ff: int,
                     n_experts: int, *,
-                    capacity_factor: float = 1.25) -> Dict[str, float]:
+                    capacity_factor: float = 1.25,
+                    dispatch: str = "einsum") -> Dict[str, float]:
     """Exact forward FLOPs of one capacity-based MoE FFN layer for
     ``n_tokens`` tokens (router, dispatch, up, down, combine): with
     capacity ``C = ceil(N/E · cf)`` the experts compute their full
-    capacity buffer, padded slots included."""
+    capacity buffer, padded slots included. ``dispatch="einsum"`` counts
+    the JAX package's one-hot dispatch and combine products;
+    ``"index"`` counts the port's ``ops/moe.py``, which gathers rows by
+    index instead (no products there: dispatch and combine are 0)."""
+    if dispatch not in ("einsum", "index"):
+        raise ValueError(f"dispatch must be einsum or index, got "
+                         f"{dispatch!r}")
     n = float(n_tokens)
     d, f, e = float(d_model), float(d_ff), float(n_experts)
     c = float(max(1, math.ceil(n_tokens / n_experts * capacity_factor)))
@@ -85,6 +92,8 @@ def moe_layer_flops(n_tokens: int, d_model: int, d_ff: int,
         "down": 2.0 * e * c * f * d,
         "combine": 2.0 * n * e * c * d,
     }
+    if dispatch == "index":
+        out["dispatch"] = out["combine"] = 0.0
     out["total"] = sum(out.values())
     out["capacity"] = c
     return out
@@ -110,9 +119,11 @@ def gpt_forward_flops_per_token(cfg: Any, seq_len: int) -> Dict[str, float]:
 
 
 def gpt_train_step_flops(cfg: Any, batch_size: int,
-                         seq_len: Optional[int] = None) -> StepFlops:
+                         seq_len: Optional[int] = None, *,
+                         moe_dispatch: str = "einsum") -> StepFlops:
     """Analytic FLOPs for one training step of a GPT-family model (MoE
-    configs get the exact capacity-based count)."""
+    configs get the exact capacity-based count of ``moe_dispatch``'s
+    form, :func:`moe_layer_flops`)."""
     seq = int(seq_len or cfg.max_seq_len)
     tokens = int(batch_size) * seq
     breakdown = gpt_forward_flops_per_token(cfg, seq)
@@ -120,7 +131,8 @@ def gpt_train_step_flops(cfg: Any, batch_size: int,
     if moe_experts and moe_experts > 1 and tokens > 0:
         layer = moe_layer_flops(
             tokens, cfg.d_model, cfg.d_ff, moe_experts,
-            capacity_factor=getattr(cfg, "moe_capacity_factor", 1.25))
+            capacity_factor=getattr(cfg, "moe_capacity_factor", 1.25),
+            dispatch=moe_dispatch)
         breakdown["mlp"] = cfg.n_layers * layer["total"] / tokens
     per_token_fwd = sum(breakdown.values())
     per_token = TRAIN_MULT * per_token_fwd

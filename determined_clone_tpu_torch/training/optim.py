@@ -26,12 +26,21 @@ One departure, for memory: optax returns new params and state, and the
 JAX step donates the old ones; here ``Optimizer.update`` writes the new
 values into the params' and the moments' own tensors and returns the new
 state.
+
+Over a mesh the params, gradients and moments are DTensors (the moments
+take their parameter's placement). The update runs on each rank's local
+blocks, which is exact for every elementwise step; the one reduction,
+``global_norm``, weighs each block by the inverse of its replica count
+and sums over the world, so the norm (and ``clip_by_global_norm``'s
+scale) is the global batch's, not the rank's.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import (Any, Callable, Dict, Iterator, List, NamedTuple, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -67,10 +76,57 @@ def unflatten(like: Any, values: List[torch.Tensor]) -> Any:
     return tree_map(lambda _: next(it), like)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (the same tensor), else ``t``."""
+    if not hasattr(t, "to_local"):
+        return t
+    with torch.no_grad():
+        return t.to_local()
+
+
+# per-leaf replica counts of the sharded leaves an update is running on
+_REPLICAS: contextvars.ContextVar = contextvars.ContextVar("_REPLICAS",
+                                                           default=None)
+
+
+def _replica_counts(tensors: List[torch.Tensor]) -> Optional[List[int]]:
+    """How many ranks hold each block of each DTensor; None when no
+    tensor is a DTensor."""
+    if not any(hasattr(t, "placements") for t in tensors):
+        return None
+    from determined_clone_tpu_torch.parallel.sharding import replica_count
+
+    return [replica_count(t.device_mesh, t.placements)
+            if hasattr(t, "placements") else 1 for t in tensors]
+
+
+@contextlib.contextmanager
+def _sharded(replicas: Optional[List[int]]) -> Iterator[None]:
+    token = _REPLICAS.set(replicas)
+    try:
+        yield
+    finally:
+        _REPLICAS.reset(token)
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """``optax.global_norm``: the 2-norm over all the tensors, on their
-    device (no host sync)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    device (no host sync). Over DTensors (or local blocks inside a
+    sharded ``Optimizer.update``), the norm of the global tensors: each
+    block's squared norm over its replica count, summed over the world."""
+    replicas = _replica_counts(tensors)
+    if replicas is None:
+        replicas = _REPLICAS.get()
+    norms = torch._foreach_norm([_local(t) for t in tensors])
+    import torch.distributed as dist
+
+    if replicas is None or dist.get_world_size() == 1:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).float().square()
+    total = (sq / torch.tensor(replicas, dtype=sq.dtype,
+                               device=sq.device)).sum()
+    dist.all_reduce(total)
+    return total.sqrt()
 
 
 class EmptyState(NamedTuple):
@@ -108,8 +164,10 @@ class Optimizer:
 
     def update(self, grads: Params, state: Any, params: Params) -> Any:
         p = leaves(params)
-        with torch.no_grad():
-            u, state = self.transform(leaves(grads), state, p)
+        with torch.no_grad(), _sharded(_replica_counts(p)):
+            p = [_local(t) for t in p]
+            u, state = self.transform([_local(g) for g in leaves(grads)],
+                                      state, p)
             torch._foreach_add_(p, u)
         return state
 
@@ -173,7 +231,8 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                          tree_map(torch.zeros_like, params))
 
     def transform(g: Updates, state: AdamState, p: List[torch.Tensor]):
-        mu, nu = leaves(state.mu), leaves(state.nu)
+        mu = [_local(t) for t in leaves(state.mu)]
+        nu = [_local(t) for t in leaves(state.nu)]
         count = state.count + 1
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, g, alpha=1 - b1)

@@ -7,7 +7,15 @@ package jits one XLA program; it still makes no host sync: the loss and
 updated in place (the JAX step donates its state). The JAX module's
 ``capture_compile`` (explicit XLA ``lower()``/``compile()``) and
 ``program_cache_size`` (the jit cache probe) are XLA-only and have no
-counterpart here; ``state_shardings`` belongs to the parallelism slice.
+counterpart here.
+
+Over a mesh, ``state_shardings`` places the state as the JAX package
+does (Adam moments take their parameter's sharding, scalars replicate)
+and ``shard_state`` makes its tensors DTensors. The same step then takes
+the DTensor state and a DTensor batch: the loss is the global batch's
+(the model reduces it), and each gradient is summed over the batch axes
+before the update (``parallel/spmd.py``), so loss, gradients and
+``grad_norm`` are those of the global batch.
 """
 from __future__ import annotations
 
@@ -18,7 +26,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from determined_clone_tpu_torch.core._serialization import (
+    tree_paths_and_leaves,
+)
 from determined_clone_tpu_torch.ops.layers import fold_seed
+from determined_clone_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    P,
+    ShardingRules,
+    shard_put,
+)
+from determined_clone_tpu_torch.parallel.spmd import local_tensor, spmd_of
 from determined_clone_tpu_torch.training.optim import (
     Optimizer,
     global_norm,
@@ -64,13 +82,66 @@ class TrainState:
         return cls(params, opt_state, int(step), (hi << 32) | lo)
 
 
+def mark_trainable(params: Any) -> None:
+    """Make every parameter an autograd leaf: a plain tensor itself, a
+    DTensor its local tensor (what the step differentiates)."""
+    for p in leaves(params):
+        local_tensor(p).requires_grad_(True)
+
+
 def create_train_state(params: Any, tx: Optimizer, seed: int) -> TrainState:
     """The state takes ``params`` over: it marks them as requiring grad,
     and the step updates them in place."""
-    for p in leaves(params):
-        p.requires_grad_(True)
+    mark_trainable(params)
     return TrainState(params=params, opt_state=tx.init(params), step=0,
                       seed=seed)
+
+
+def state_shardings(state: TrainState, mesh: Any,
+                    rules: ShardingRules) -> TrainState:
+    """Shardings for a whole TrainState. Optimizer-state subtrees
+    congruent with the params (Adam's mu and nu) take the params' own
+    shardings — ZeRO-1/2: the moments are sharded exactly like the params
+    they track; everything else (counts, step, seed) replicates."""
+    param_sh = rules.shardings_for(state.params, mesh)
+    struct = _paths(state.params)
+    rep = NamedSharding(mesh, P())
+
+    def opt(node: Any) -> Any:
+        if isinstance(node, dict):
+            if _paths(node) == struct:
+                return param_sh
+            return {k: opt(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*[opt(c) for c in node])
+        if isinstance(node, (tuple, list)):
+            return type(node)(opt(c) for c in node)
+        return rep
+
+    return TrainState(params=param_sh, opt_state=opt(state.opt_state),
+                      step=rep, seed=rep)
+
+
+def _paths(tree: Any) -> list:
+    return [p for p, _ in tree_paths_and_leaves(tree)]
+
+
+def shard_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """The state's tensors as DTensors on ``shardings`` (every rank holds
+    the same values; each keeps its blocks)."""
+    params = shard_put(state.params, shardings.params)
+    mark_trainable(params)
+    return TrainState(params, shard_put(state.opt_state, shardings.opt_state),
+                      state.step, state.seed)
+
+
+def _like(g: torch.Tensor, p: Any) -> torch.Tensor:
+    """Local gradient ``g`` as a DTensor placed as its parameter ``p``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(g, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
 
 
 def make_train_step(loss_fn: LossFn, tx: Optimizer, *,
@@ -94,10 +165,16 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, *,
         out = loss_fn(state.params, batch, fold_seed(state.seed, state.step))
         loss, metrics = out if isinstance(out, tuple) else (out, {})
         params = leaves(state.params)
+        targets = [local_tensor(p) for p in params]
         # a parameter the loss does not use (BERT's MLM bias under the
         # classification loss) gets a zero gradient, as under jax.grad
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            params, torch.autograd.grad(loss, params, allow_unused=True))]
+            targets, torch.autograd.grad(loss, targets, allow_unused=True))]
+        sp = spmd_of(params[0])
+        if sp is not None:
+            with torch.no_grad():
+                sp.reduce_grads(params, grads)
+            grads = [_like(g, p) for g, p in zip(grads, params)]
         # copied before the update: a metric may alias a parameter (a
         # metric of ``params["w"]``), which the update overwrites in place,
         # and the JAX step reports the value before the update

@@ -21,6 +21,17 @@ Hot-loop options (config ``optimizations:`` block):
   target remainders smaller than k use the single step, so the batch
   order and the per-step seeds are those of the unfused loop.
 
+Mesh path (the JAX loop's ``_fit_inner`` with a mesh): when the trial's
+context has a mesh (``slots_per_trial`` ranks started by
+``exec/launch.py``), the state is placed by ``state_shardings`` on the
+trial's ``sharding_rules()`` and each batch by its ``batch_spec``: every
+rank reads the global batch from the trial's stream and keeps its own
+rows. Restores go into the same placements; reports and searcher
+progress come from the chief only (the Core API contexts gate them);
+saves are sharded (``shard=dist.size > 1``): each rank writes its blocks
+into ``shard-{rank}.npz`` and the manifests merge, in the JAX package's
+format.
+
 Seeds: the params are drawn from a generator seeded with
 ``fold_seed(experiment_seed, 0)``, the state's seed is
 ``fold_seed(experiment_seed, 1)`` and validation's
@@ -52,14 +63,26 @@ from determined_clone_tpu_torch.core._serialization import (
     load_pytree,
     save_pytree,
 )
+from determined_clone_tpu_torch.core._serialization import (
+    tree_map_with_path,
+    tree_paths_and_leaves,
+)
 from determined_clone_tpu_torch.ops.layers import fold_seed
+from determined_clone_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    PartitionSpec,
+    from_block,
+    host_block,
+)
 from determined_clone_tpu_torch.training.metrics import MetricAccumulator
-from determined_clone_tpu_torch.training.optim import leaves
 from determined_clone_tpu_torch.training.train_step import (
     TrainState,
     create_train_state,
     make_eval_step,
     make_train_step,
+    mark_trainable,
+    shard_state,
+    state_shardings,
 )
 from determined_clone_tpu_torch.training.trial import TorchTrial
 from determined_clone_tpu_torch.utils.data import (
@@ -94,6 +117,31 @@ def _skip_batches(it: Iterator[Any], n: int) -> int:
     return skipped
 
 
+def _same(batch: Any) -> Any:
+    return batch
+
+
+def _batch_placement(mesh: Any, specs: Any):
+    """(split, place) for batches on ``mesh`` by their spec tree: split
+    keeps this rank's block of each host array, place makes each card
+    tensor the DTensor whose block it is."""
+    flat = dict(tree_paths_and_leaves(
+        specs, is_leaf=lambda n: isinstance(n, PartitionSpec)))
+    shardings = {path: NamedSharding(mesh, spec)
+                 for path, spec in flat.items()}
+
+    def split(batch: Any) -> Any:
+        return tree_map_with_path(
+            lambda path, x: host_block(x, shardings[path]), batch)
+
+    def place(batch: Any) -> Any:
+        return tree_map_with_path(
+            lambda path, x: from_block(x, shardings[path])
+            if isinstance(x, torch.Tensor) else x, batch)
+
+    return split, place
+
+
 class Trainer:
     def __init__(self, trial: TorchTrial) -> None:
         self.trial = trial
@@ -121,6 +169,7 @@ class Trainer:
         ``metric`` is the searcher metric at save time, when validation
         ran at this batch count."""
         faults.point("training.checkpoint_save")
+        dist = self.core.distributed
         metadata = {
             "steps_completed": batches_trained,
             "reason": reason,
@@ -128,9 +177,9 @@ class Trainer:
         }
         if metric is not None:
             metadata["validation_metric"] = float(metric)
-        with self.core.checkpoint.store_path(metadata=metadata) as (path,
-                                                                    holder):
-            save_pytree(f"{path}/{CKPT_STATE_DIR}", state)
+        with self.core.checkpoint.store_path(
+                metadata=metadata, shard=dist.size > 1) as (path, holder):
+            save_pytree(f"{path}/{CKPT_STATE_DIR}", state, host_id=dist.rank)
         return holder.get("storage_id", "")
 
     def _restore(self, storage_id: str, like: TrainState) -> tuple:
@@ -161,8 +210,7 @@ class Trainer:
             if os.path.exists(mpath):
                 with open(mpath) as f:
                     meta = json.load(f)
-        for p in leaves(state.params):
-            p.requires_grad_(True)
+        mark_trainable(state.params)
         return state, int(meta.get("steps_completed", 0))
 
     # -- the loop -----------------------------------------------------------
@@ -180,18 +228,29 @@ class Trainer:
     def _fit_inner(self, latest_checkpoint: Optional[str] = None
                    ) -> Dict[str, Any]:
         trial, config, dev = self.trial, self.config, self.device
+        mesh = trial.context.mesh
 
         seed = config.experiment_seed
         gen = torch.Generator(device=dev).manual_seed(fold_seed(seed, 0))
         params = trial.initial_params(gen)
         tx = trial.optimizer()
         state = create_train_state(params, tx, fold_seed(seed, 1))
+        if mesh is not None:
+            # every rank drew the same params; each keeps its blocks
+            state = shard_state(state, state_shardings(
+                state, mesh, trial.sharding_rules()))
 
         data_iter = iter(trial.training_data())
         try:
             first_batch = next(data_iter)
         except StopIteration:
             raise RuntimeError("training_data() yielded no batches") from None
+        # over a mesh a host batch is cut to this rank's rows before its
+        # copy to the card (split), and the copy becomes a DTensor (place)
+        split = place = _same
+        if mesh is not None:
+            split, place = _batch_placement(mesh,
+                                            trial.batch_spec(first_batch))
 
         batches_trained = 0
         if latest_checkpoint:
@@ -253,7 +312,8 @@ class Trainer:
             put, ready = functools.partial(batch_to_device, device=dev), None
 
         feed = make_device_feeder(
-            batches(), put, depth=prefetch_depth * k if prefetch_depth else 0,
+            map(split, batches()), put,
+            depth=prefetch_depth * k if prefetch_depth else 0,
             name="train-prefetch", ready=ready)
 
         acc = MetricAccumulator()
@@ -291,12 +351,12 @@ class Trainer:
                     yield vb
 
             vacc = MetricAccumulator()
-            vfeed = make_device_feeder(full_batches(), put,
+            vfeed = make_device_feeder(map(split, full_batches()), put,
                                        depth=prefetch_depth,
                                        name="eval-prefetch", ready=ready)
             try:
                 for vbatch in vfeed:
-                    vacc.add(eval_step(state, vbatch))
+                    vacc.add(eval_step(state, place(vbatch)))
             finally:
                 vfeed.close()
             metrics = vacc.result() if len(vacc) else {}
@@ -333,12 +393,13 @@ class Trainer:
                         faults.point("training.pre_step")
                         if (fused_step is not None
                                 and chunk_end - batches_trained >= k):
-                            group = [next(feed) for _ in range(k)]
+                            group = [place(next(feed)) for _ in range(k)]
                             state, metrics = fused_step(state, *group)
                             acc.add(metrics, count=k)
                             batches_trained += k
                         else:
-                            state, metrics = train_step(state, next(feed))
+                            state, metrics = train_step(state,
+                                                        place(next(feed)))
                             acc.add(metrics)
                             batches_trained += 1
                         faults.point("training.post_step")

@@ -14,6 +14,7 @@ import itertools
 import json
 import os
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -128,24 +129,27 @@ def test_config_rejects_as_jax_does(raw):
     ({"observability": {"enabled": True}}, "telemetry"),
     ({"checkpoint_storage": {"type": "gcs", "bucket": "b"}}, "storage"),
     ({"checkpoint_storage": {"type": "s3", "bucket": "b"}}, "storage"),
-    ({"resources": {"slots_per_trial": 8}}, "parallelism"),
-], ids=["observability", "gcs", "s3", "slots"])
+], ids=["observability", "gcs", "s3"])
 def test_config_blocks_not_ported_raise(raw, item):
     JConfig.from_dict(raw)  # valid for the JAX package
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         TConfig.from_dict(raw)
 
 
+@pytest.mark.parametrize("slots", [0, 2, 4, 8])
+def test_config_accepts_slots_per_trial_as_jax_does(slots):
+    """``slots_per_trial`` above 1 is a trial over that many ranks."""
+    raw = {"resources": {"slots_per_trial": slots}}
+    t, j = TConfig.from_dict(raw), JConfig.from_dict(raw)
+    assert t.resources.slots_per_trial == j.resources.slots_per_trial == slots
+
+
 def test_config_from_yaml_reads_the_example(tmp_path):
     path = os.path.join(os.path.dirname(__file__), os.pardir, "examples",
                         "gpt_fsdp", "fsdp.yaml")
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        TConfig.from_yaml(path)  # slots_per_trial: 8
-    text = open(path).read().replace("slots_per_trial: 8",
-                                     "slots_per_trial: 1")
-    (tmp_path / "c.yaml").write_text(text)
-    t, j = (C.from_yaml(str(tmp_path / "c.yaml")) for C in (TConfig, JConfig))
+    t, j = (C.from_yaml(path) for C in (TConfig, JConfig))
     assert _fields(t) == _fields(j)
+    assert t.resources.slots_per_trial == 8
     assert t.hyperparameters["mesh"] == {"fsdp": 8}
     assert Length.batches(400) == t.searcher.max_length
 
@@ -338,6 +342,59 @@ def test_checkpoints_validate_across_packages(tmp_path, writer):
     assert ck.wait_async() == [] and ck.abort_async() is None
 
 
+def _sharded_save(mod, tmp_path, names):
+    """Two ranks of an in-process group save with ``shard=True``, rank r
+    writing ``names[r]``; returns each rank's storage id or error."""
+    store = mod.SharedFSStorageManager(str(tmp_path / "s"))
+    reg = mod.LocalCheckpointRegistry(str(tmp_path / "s" / "reg.jsonl"))
+    group = mod.DistributedContext.make_local_group(2)
+    out = [None, None]
+
+    def rank(r):
+        ck = mod.CheckpointContext(group[r], store, reg, trial_id=3)
+        try:
+            with ck.store_path({"steps_completed": 2}, shard=True) as (d, h):
+                with open(os.path.join(d, names[r]), "w") as f:
+                    f.write(f"rank {r}")
+            out[r] = h["storage_id"]
+        except ValueError as e:
+            out[r] = e
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    return out
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_sharded_upload_over_two_ranks(tmp_path, writer):
+    """``store_path(shard=True)``: one storage id for both ranks, each
+    rank's file uploaded, the chief's merged manifest listing both and
+    its metadata; the checkpoint validates in both packages. A path that
+    two ranks write is refused on both, as in the JAX package."""
+    from determined_clone_tpu.storage import base as jstorage
+    from determined_clone_tpu_torch.storage import base as tstorage
+
+    mod = types.SimpleNamespace(**vars(tcore if writer == "port" else jcore))
+    mod.SharedFSStorageManager = (tstorage if writer == "port"
+                                  else jstorage).SharedFSStorageManager
+    sids = _sharded_save(mod, tmp_path / "ok", ["shard-0.npz", "shard-1.npz"])
+    assert sids[0] == sids[1] and isinstance(sids[0], str)
+    root = tmp_path / "ok" / "s" / sids[0]
+    assert sorted(os.listdir(root)) == ["COMMIT", "manifest.json",
+                                        "metadata.json", "shard-0.npz",
+                                        "shard-1.npz"]
+    files = json.loads((root / "manifest.json").read_text())["files"]
+    assert sorted(files) == ["metadata.json", "shard-0.npz", "shard-1.npz"]
+    for reader in (tcore, jcore):
+        assert reader.validate_checkpoint_dir(str(root), sids[0]) is True
+    bad = _sharded_save(mod, tmp_path / "bad", ["same.npz", "same.npz"])
+    assert all(isinstance(e, ValueError) and "conflict" in str(e)
+               for e in bad)
+
+
 def test_storage_fault_points_fire(tmp_path):
     ck, _ = _stored(tcore, tmp_path, "s")
     rules = {"rules": [{"point": "storage.upload", "exc": "fault"}]}
@@ -370,8 +427,11 @@ def test_core_init_local_mode(tmp_path, monkeypatch):
         tfaults.reset()
     with tcore.init() as ctx:  # no arguments: a temporary storage dir
         assert ctx.checkpoint.committed_checkpoints() == []
-    with pytest.raises(tcore.DistributedError):
-        tcore.DistributedContext(rank=1, size=2)
+    # a rank of a larger world is valid; one outside it is not, as in JAX
+    assert not tcore.DistributedContext(rank=1, size=2).is_chief
+    for core in (tcore, jcore):
+        with pytest.raises(core.DistributedError):
+            core.DistributedContext(rank=2, size=2)
 
 
 def test_preemption_flag_is_seen(tmp_path):

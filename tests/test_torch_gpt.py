@@ -128,8 +128,9 @@ def test_resolved_attention_impl():
     for cfg in (dataclasses.replace(tcfg, blockwise_attention=True),
                 dataclasses.replace(tcfg, attention_impl="blockwise")):
         assert tgpt.resolved_attention_impl(cfg, "cuda") == "blockwise"
-    with pytest.raises(NotImplementedError):
-        tgpt.GPTConfig(moe_experts=4)
+    # the MoE GPT is ported (tests/test_torch_moe.py holds it against JAX)
+    moe = tgpt.GPTConfig(moe_experts=4)
+    assert tgpt.resolved_attention_impl(moe, "cpu") == "mha"
 
 
 def test_forward_paged_prefill_then_decode_matches_jax(jax_params,

@@ -465,10 +465,16 @@ def test_gpt_trial_refuses_a_mesh_and_needs_the_card(tmp_path):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 TContext(config=cfg, hparams=GPT_HP, core=ctx)
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            tgpt_trial.GPTTrial(TContext(
-                config=cfg, hparams={**GPT_HP, "mesh": {"fsdp": 8}},
-                core=ctx, device="cpu"))
+        # a mesh over 8 devices with one slot and no world: the trial
+        # builds, and its mesh raises as the JAX trial context does
+        big = tgpt_trial.GPTTrial(TContext(
+            config=cfg, hparams={**GPT_HP, "mesh": {"fsdp": 8}},
+            core=ctx, device="cpu"))
+        with pytest.raises(ValueError, match="fsdp=8.* on 1 devices"):
+            big.context.mesh
+        with pytest.raises(ValueError, match="fsdp=8.* on 1 devices"):
+            JContext(config=JConfig.from_dict({}), core=ctx,
+                     hparams={**GPT_HP, "mesh": {"fsdp": 8}})
         trial = tgpt_trial.GPTTrial(TContext(
             config=cfg, hparams={**GPT_HP, "mesh": {"dp": 1}}, core=ctx,
             device="cpu"))
