@@ -175,7 +175,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    for bit; (d) the MoE GPT in fp32 behind phase 9's ``ServingConfig``
    (128-token chunks): phase 4's 8-request burst on a cold engine
    (eager) and on a warmed one (graph replays only), token for token,
-   with tokens/s.
+   with tokens/s;
+12. the second half of the parallelism slice, in a one-rank NCCL world
+   (``init_rank``; the card is one, so the pipeline and sequence axes
+   have size 1 and their collectives are skipped — ``parallel/check.py``
+   runs them across four cards): (a) ``ring_attention`` and
+   ``ulysses_attention`` at sp 1 on B=4, T=1024, H=12, D=64 in fp32 and
+   bf16, each within phase 2's bound (``TOL``) of ``mha`` and of the
+   flash kernel on the same inputs; (b) ``GPTConfig()`` with
+   ``pipeline_microbatches=4`` on the one-rank mesh, state and batch
+   placed by ``GPT_PP_SHARDING_RULES``, phase 6's weights, batch and
+   AdamW for 4 steps: the losses equal phase 6's first 4 bit for bit, the
+   flash kernel launched ``2 * n_layers`` times per step (the stage
+   count of (L/P) layers x the ticks that run the stage x 2 at P = 1);
+   (c) BASELINE #2's and #3's ``distributed.yaml`` cut 8 → 1 rank, the
+   global batch cut to one chip's share (64, 32; ResNet 200 → 10
+   batches), through ``Trainer.fit`` on the one-rank mesh: every report
+   equal to the same trial's without a mesh, bit for bit (both with
+   cuDNN's deterministic algorithms); (d) BERT-base
+   ``classify`` (bf16, batch 32, seq 128) under ``BERT_SHARDING_RULES``
+   on the one-rank mesh equal to the unmeshed forward bit for bit.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
@@ -183,7 +202,8 @@ that of phase 3, the uncached forward (the engine's paged forward
 attends with plain ``mha``, as in the JAX package); ``train_launches``
 is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
 two legs; phases 8, 9 and 10 launch none (``serving_launches``,
-``fleet_launches``); ``parallel_launches`` is phase 11's, (b) to (d).
+``fleet_launches``); ``parallel_launches`` is phase 11's, (b) to (d);
+``pipeline_launches`` is phase 12's (b).
 The last
 three lines are the kernels' JSON line, the card's name and power limit,
 and the result; the line before them gives the whole script's wall
@@ -1269,16 +1289,18 @@ def _read_yaml(rel_path) -> dict:
         return yaml.safe_load(f)
 
 
-def fit_family(trial_cls, cfg, hparams, storage, device="cuda") -> dict:
+def fit_family(trial_cls, cfg, hparams, storage, device="cuda",
+               distributed=None, **mesh) -> dict:
     """``core.init(config=...)`` → ``Trainer(trial).fit()`` with
     checkpoints under ``storage``: the reports, the result and the wall
-    time."""
+    time. ``mesh=None`` trains without a mesh in a distributed world."""
     from determined_clone_tpu_torch import core
     from determined_clone_tpu_torch.training import Trainer, TrialContext
 
-    with core.init(config=cfg, storage_path=storage, trial_id=1) as ctx:
+    with core.init(config=cfg, storage_path=storage, trial_id=1,
+                   distributed=distributed) as ctx:
         trial = trial_cls(TrialContext(config=cfg, hparams=hparams,
-                                       core=ctx, device=device))
+                                       core=ctx, device=device, **mesh))
         trainer = Trainer(trial)
         t0 = time.monotonic()
         result = trainer.fit()
@@ -3493,6 +3515,254 @@ def phase_parallel(unmeshed) -> dict:
     return out
 
 
+# phase 12: the second half of the parallelism slice, on one rank
+SP_ATTENTION = (4, 1024, 12, 64)   # B, T, H, D: the GPT's attention
+PIPELINE_STEPS, PIPELINE_M = 4, 4
+RESNET_MESH_BATCHES = 10
+
+
+def sp_attention_cases(mesh) -> list:
+    """(a) ``ring_attention`` and ``ulysses_attention`` at sp 1 against
+    ``mha`` and the flash kernel on the same inputs, within phase 2's
+    bounds (``TOL``)."""
+    import torch
+
+    from determined_clone_tpu_torch.ops.attention import (
+        mha,
+        ring_attention,
+        ulysses_attention,
+    )
+    from determined_clone_tpu_torch.ops.flash_attention import (
+        flash_attention_kernel,
+    )
+
+    B, T, H, D = SP_ATTENTION
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda",
+                               dtype=dtype) for _ in range(3))
+        with torch.no_grad():
+            ref = mha(q, k, v, causal=True).float()
+            flash = flash_attention_kernel(q, k, v, causal=True,
+                                           block_k=128).float()
+            for fn in (ring_attention, ulysses_attention):
+                out = fn(q, k, v, axis_name="sp", mesh=mesh)
+                rows.append({
+                    "fn": fn.__name__, "dtype": str(dtype),
+                    "shape": [B, T, H, D], "tol": TOL[str(dtype)],
+                    "vs_mha": (out.float() - ref).abs().max().item(),
+                    "vs_flash": (out.float() - flash).abs().max().item()})
+    for r in rows:
+        log(f"[second half] (a) {r['fn']} {r['dtype']} sp 1 "
+            f"B,T,H,D={r['shape']}: max |diff| vs mha {r['vs_mha']:.3g}, "
+            f"vs flash {r['vs_flash']:.3g} (tolerance {r['tol']})")
+    return rows
+
+
+def pipelined_steps(mesh, want) -> dict:
+    """(b) ``GPTConfig()`` with ``pipeline_microbatches=4``, state and
+    batch placed by ``GPT_PP_SHARDING_RULES`` on the one-rank mesh
+    (``pp`` 1: the stages' shortcut), phase 6's weights, batch and
+    AdamW: the first losses equal phase 6's bit for bit."""
+    import dataclasses as dc
+
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.parallel.sharding import (
+        NamedSharding,
+        batch_spec,
+        to_dtensor,
+    )
+    from determined_clone_tpu_torch.training.train_step import (
+        shard_state,
+        state_shardings,
+    )
+
+    cfg = dc.replace(gpt.GPTConfig(), pipeline_microbatches=PIPELINE_M)
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1025), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    state, step = train_setup(cfg, params)
+    state = shard_state(state, state_shardings(state, mesh,
+                                               gpt.GPT_PP_SHARDING_RULES))
+    batch = to_dtensor(tokens, NamedSharding(mesh, batch_spec(1)))
+    del params
+    losses = []
+    flash_attention.launches = 0
+    t0 = time.monotonic()
+    for _ in range(PIPELINE_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    wall = time.monotonic() - t0
+    launches = flash_attention.launches
+    del state
+    # launches per rank per step: (L / P) layers x the ticks that run the
+    # stage (M over pp > 1; one call at pp 1) x 2 (remat)
+    per_step = cfg.n_layers * 2
+    log(f"[second half] (b) GPTConfig() M={PIPELINE_M} under "
+        f"GPT_PP_SHARDING_RULES on the one-rank mesh: losses "
+        f"{', '.join(repr(x) for x in losses)} (phase 6 "
+        f"{', '.join(repr(x) for x in want[:PIPELINE_STEPS])}); flash "
+        f"launches {launches} ({per_step} expected per step); "
+        f"{wall * 1e3 / PIPELINE_STEPS:.1f} ms/step")
+    return {"losses": losses, "phase6": want[:PIPELINE_STEPS],
+            "launches": launches, "launches_per_step": launches
+            // PIPELINE_STEPS, "expected_per_step": per_step,
+            "wall_s": wall}
+
+
+def _reports_of(run) -> list:
+    return [(g, s, m.get("loss"), m.get("accuracy")) for g in
+            ("training", "validation") for s, m in run[g]]
+
+
+def meshed_families(dist) -> dict:
+    """(c) BASELINE #2 and #3's ``distributed.yaml`` cut 8 → 1 rank (the
+    global batch to one chip's share) through ``Trainer.fit`` on the
+    one-rank mesh, against the same trial with no mesh."""
+    import shutil
+    import tempfile
+
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.examples.mnist import MnistTrial
+    from determined_clone_tpu_torch.examples.resnet50 import ResNetTrial
+
+    import torch
+
+    out = {}
+    # cuDNN's default weight-gradient algorithms sum with atomics: two runs
+    # of one program differ in the last bits (mnist: 7e-5 of the loss
+    # after 100 steps), so the bit-for-bit comparison runs deterministic
+    # algorithms
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    for name, cls, rel, batch, batches in (
+            ("mnist", MnistTrial, "examples/mnist/distributed.yaml", 64,
+             None),
+            ("resnet50", ResNetTrial, "examples/resnet50/distributed.yaml",
+             32, RESNET_MESH_BATCHES)):
+        raw = _read_yaml(rel)
+        hp = dict(raw["hyperparameters"], global_batch_size=batch)
+        hp["mesh"] = {a: 1 for a in hp["mesh"]}
+        if batches:   # ResNet: 200 -> 10 batches, 320 synthetic images
+            hp["n_train"] = 320
+            raw.update(searcher={**raw["searcher"], "max_length": {
+                "batches": batches}}, scheduling_unit=5,
+                min_validation_period={"batches": batches})
+        raw.update(hyperparameters=hp, resources={"slots_per_trial": 1})
+        cfg = ExperimentConfig.from_dict(raw)
+        storage = tempfile.mkdtemp(prefix="chip-smoke-mesh-families-")
+        try:
+            meshed = fit_family(cls, cfg, hp, os.path.join(storage, "a"),
+                                distributed=dist)
+            plain = fit_family(cls, cfg, {k: v for k, v in hp.items()
+                                          if k != "mesh"},
+                               os.path.join(storage, "b"), mesh=None)
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        mesh = meshed["trial"].context.mesh
+        out[name] = {"reports": _reports_of(meshed),
+                     "plain": _reports_of(plain), "batch": batch,
+                     "mesh_size": None if mesh is None else mesh.size(),
+                     "wall_s": meshed["wall_s"],
+                     "plain_wall_s": plain["wall_s"]}
+        log(f"[second half] (c) {name} {rel} cut 8 -> 1 rank, batch "
+            f"{batch}: {len(out[name]['reports'])} reports on the one-rank "
+            f"mesh, last {out[name]['reports'][-1]} (no mesh: "
+            f"{out[name]['plain'][-1]}); fit {meshed['wall_s']:.2f} s "
+            f"against {plain['wall_s']:.2f} s")
+    cudnn.deterministic, cudnn.benchmark = was
+    return out
+
+
+def bert_on_mesh(mesh) -> dict:
+    """(d) BERT-base ``classify`` (phase 8's widths, bf16) under
+    ``BERT_SHARDING_RULES`` on the one-rank mesh against the unmeshed
+    forward on the same weights and tokens."""
+    import torch
+
+    from determined_clone_tpu_torch.models import bert
+    from determined_clone_tpu_torch.parallel.sharding import (
+        NamedSharding,
+        batch_spec,
+        shard_put,
+        to_dtensor,
+    )
+
+    cfg = bert.BertConfig(max_seq_len=BERT_BASE["seq_len"])
+    params = bert.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (BERT_BASE["global_batch_size"],
+                                               BERT_BASE["seq_len"]),
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(4))
+    with torch.no_grad():
+        plain = bert.classify(params, cfg, tokens)
+        placed = shard_put(params, bert.BERT_SHARDING_RULES.shardings_for(
+            params, mesh))
+        meshed = bert.classify(placed, cfg, to_dtensor(
+            tokens, NamedSharding(mesh, batch_spec(1)))).to_local()
+    equal = bool(torch.equal(plain, meshed))
+    log(f"[second half] (d) BERT-base classify, batch "
+        f"{BERT_BASE['global_batch_size']} seq {BERT_BASE['seq_len']} bf16 "
+        f"under BERT_SHARDING_RULES on the one-rank mesh: equal to the "
+        f"unmeshed forward bit for bit: {equal} (max |logit| "
+        f"{plain.abs().max().item():.4f})")
+    return {"equal": equal}
+
+
+def phase_second_half(train) -> dict:
+    """Phase 12: (a)-(d) of the module docstring in a one-rank NCCL world
+    (``init_rank``); the flash kernel's launches over (b) are
+    ``pipeline_launches``."""
+    from determined_clone_tpu_torch.exec import launch
+    from determined_clone_tpu_torch.parallel import MeshSpec, make_mesh
+
+    t0 = time.monotonic()
+    dist = launch.init_rank(0, 1, device="cuda")
+    try:
+        mesh = make_mesh(MeshSpec())
+        out = {"attention": sp_attention_cases(mesh),
+               "pipeline": pipelined_steps(mesh, train["losses"]),
+               "families": meshed_families(dist),
+               "bert": bert_on_mesh(mesh)}
+    finally:
+        launch.shutdown()
+    pipe, fam = out["pipeline"], out["families"]
+    checks = {
+        f"(a) {r['fn']} {r['dtype']}: within {r['tol']} of mha and of the "
+        f"flash kernel": r["vs_mha"] <= r["tol"] and r["vs_flash"] <= r["tol"]
+        for r in out["attention"]}
+    checks.update({
+        "(b) the pipelined GPT's losses equal phase 6's bit for bit":
+            pipe["losses"] == pipe["phase6"],
+        "(b) the flash kernel ran 2 x n_layers times per step":
+            pipe["launches"] == PIPELINE_STEPS * pipe["expected_per_step"],
+        **{f"(c) {n}: trained on the one-rank mesh, its reports equal the "
+           f"unmeshed trial's bit for bit": (
+               f["mesh_size"] == 1 and bool(f["reports"])
+               and f["reports"] == f["plain"]) for n, f in fam.items()},
+        "(d) BERT-base under BERT_SHARDING_RULES equals the unmeshed "
+        "forward bit for bit": out["bert"]["equal"],
+    })
+    for name, ok in checks.items():
+        log(f"[second half] check {'ok' if ok else 'FAILED'}: {name}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 12 checks failed: {failed}")
+    out["checks"] = checks
+    out["launches"] = pipe["launches"]
+    out["wall_s"] = time.monotonic() - t0
+    log(f"[second half] phase 12 wall {out['wall_s']:.1f} s; flash launches "
+        f"{out['launches']} in (b)")
+    return out
+
+
 class _Tok:
     """A /v1/generate reply as check_greedy reads a result."""
 
@@ -3554,6 +3824,7 @@ def main(argv) -> int:
     report["fleet"] = phase_fleet(params, cfg)
     del params
     report["parallel"] = phase_parallel(report["trial"]["legs"]["leg1"])
+    report["second_half"] = phase_second_half(report["train"])
 
     smi = card_line()
     # the main path's case (bf16 at the GPT width) and, beside it, the
@@ -3570,6 +3841,7 @@ def main(argv) -> int:
         "serving_launches": report["serving"]["flash_launches"],
         "fleet_launches": report["fleet"]["flash_launches"],
         "parallel_launches": report["parallel"]["launches"],
+        "pipeline_launches": report["second_half"]["launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

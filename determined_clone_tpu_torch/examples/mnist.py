@@ -7,6 +7,12 @@ defaults to 1e-4 as optax's does. Data: scikit-learn's handwritten-digit
 scans by default (``dataset: digits``, read from the copy the port keeps,
 ``utils/data.py``), real MNIST IDX files with ``dataset: mnist`` and
 ``data_dir``.
+
+On a mesh (``distributed.yaml``'s ``dp: 8``, BASELINE #2) the trial keeps
+the default ``ShardingRules()`` and runs its model through
+``parallel.spmd.replicated_program``: weights whole in the forward, the
+batch split over ``dp`` × ``fsdp``, dropout masks drawn at the global
+batch's shape, losses and metrics the global batch's.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from determined_clone_tpu_torch.ops.layers import (
     accuracy,
     softmax_cross_entropy,
 )
+from determined_clone_tpu_torch.parallel.spmd import replicated_program
 from determined_clone_tpu_torch.training import TorchTrial
 from determined_clone_tpu_torch.training import optim
 from determined_clone_tpu_torch.utils.data import (
@@ -50,14 +57,19 @@ class MnistTrial(TorchTrial):
 
     def loss(self, params, batch, seed):
         x, y = batch
-        return mnist_cnn.loss_fn(params, self.cfg, x, y, training=True,
-                                 dropout_seed=seed), {}
+        return replicated_program(
+            lambda p, x, y, rows: mnist_cnn.loss_fn(
+                p, self.cfg, x, y, training=True, dropout_seed=seed,
+                rows=rows), params, x, y), {}
 
     def eval_metrics(self, params, batch):
+        def metrics(p, x, y, rows):
+            logits = mnist_cnn.apply(p, self.cfg, x)
+            return {"loss": softmax_cross_entropy(logits, y).mean(),
+                    "accuracy": accuracy(logits, y)}
+
         x, y = batch
-        logits = mnist_cnn.apply(params, self.cfg, x)
-        return {"loss": softmax_cross_entropy(logits, y).mean(),
-                "accuracy": accuracy(logits, y)}
+        return replicated_program(metrics, params, x, y)
 
     def training_data(self):
         epoch = 0

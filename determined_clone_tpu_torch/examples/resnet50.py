@@ -4,20 +4,22 @@ with the same hyperparameter names and defaults, the same optimizer
 (``chain(clip_by_global_norm(1.0), adamw(lr))``) and the same synthetic
 data, so both trials see the same batches.
 
-The port trains on one card: a ``mesh`` hparam whose axes multiply to
-more than 1 (``distributed.yaml``'s dp 4 × fsdp 2) raises, since sharded
-training comes with the parallelism slice (``ROADMAP.md``).
+On a mesh (``distributed.yaml``'s dp 4 × fsdp 2) the trial keeps the
+default ``ShardingRules()`` (large leaves scattered over ``fsdp``, Adam's
+moments with them) and runs its model through
+``parallel.spmd.replicated_program``: weights gathered whole in the
+forward, the batch split over ``dp`` × ``fsdp``, the loss the global
+batch's.
 
 Data: deterministic synthetic imagenet-shaped batches (class prototypes
 plus noise — learnable, so a falling loss is a real signal).
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 
 from determined_clone_tpu_torch.models import resnet
+from determined_clone_tpu_torch.parallel.spmd import replicated_program
 from determined_clone_tpu_torch.training import TorchTrial
 from determined_clone_tpu_torch.training import optim
 
@@ -38,12 +40,6 @@ class ResNetTrial(TorchTrial):
     def __init__(self, context):
         super().__init__(context)
         get = context.get_hparam
-        mesh = get("mesh") or {}
-        if math.prod(int(v) for v in mesh.values()) > 1:
-            raise NotImplementedError(
-                f"mesh {mesh}: sharded training is not ported yet "
-                f"(ROADMAP.md, Queue 1: parallelism); drop the mesh hparam "
-                f"to train on one card")
         self.cfg = resnet.ResNetConfig(
             depth=int(get("depth", 50)),
             n_classes=int(get("n_classes", 1000)),
@@ -61,7 +57,9 @@ class ResNetTrial(TorchTrial):
 
     def loss(self, params, batch, seed):
         x, y = batch
-        return resnet.loss_fn(params, self.cfg, x, y), {}
+        return replicated_program(
+            lambda p, x, y, rows: resnet.loss_fn(p, self.cfg, x, y),
+            params, x, y), {}
 
     def training_data(self):
         bs = self.global_batch_size

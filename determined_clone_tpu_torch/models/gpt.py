@@ -25,9 +25,14 @@ of the JAX program (``parallel/spmd.py``): weights sharded over ``fsdp``
 are all-gathered per layer (FSDP); ``tp`` splits the heads (the flash
 kernel runs on the rank's own heads), the MLP width and the vocabulary
 (a vocab-parallel embedding and cross-entropy, whose logsumexp spans
-``tp``); ``ep`` splits the experts; the loss is the global batch's. The
-``pp`` pipeline and the ``sp`` attention modes are the second half of the
-parallelism slice (``ROADMAP.md``).
+``tp``); ``ep`` splits the experts; the loss is the global batch's.
+Over ``pp`` with the blocks placed by ``GPT_PP_SHARDING_RULES`` the
+stack runs as a GPipe pipeline (``parallel/pipeline.py``): each rank
+runs its stage's layers on ``pipeline_microbatches`` microbatches of its
+rows. Over ``sp`` each rank takes its block of the sequence (the tokens
+may come split by ``TOKENS_SPEC`` or whole), with global rotary
+positions, and attends through ``ring_attention``; the loss's token mean
+spans ``sp``.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from determined_clone_tpu_torch.device import DeviceLike, resolve_device
 from determined_clone_tpu_torch.ops.attention import (
     causal_blockwise_attention,
     mha,
+    ring_attention,
     rotary_embedding,
 )
 from determined_clone_tpu_torch.ops.flash_attention import (
@@ -66,21 +72,21 @@ from determined_clone_tpu_torch.ops.layers import (
     trunc_normal,
 )
 from determined_clone_tpu_torch.ops.moe import moe_ffn
+from determined_clone_tpu_torch.parallel.pipeline import pipeline_apply
 from determined_clone_tpu_torch.parallel.sharding import (
     P,
     ShardingRules,
-    batch_spec,
     placements_for,
 )
 from determined_clone_tpu_torch.parallel.spmd import (
+    BATCH_AXES,
     SpmdContext,
     local_rows,
+    split_over,
     spmd_of,
 )
 
 Params = Dict[str, Any]
-ROADMAP_PIPELINE = ("ROADMAP.md, Queue 1: parallelism, second half "
-                    "(the pp pipeline)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +162,7 @@ def sharding_rules(pipelined: bool = False) -> ShardingRules:
 
 
 GPT_SHARDING_RULES = sharding_rules(pipelined=False)
+GPT_PP_SHARDING_RULES = sharding_rules(pipelined=True)
 
 # Activation specs: batch over (dp, fsdp), sequence over sp, heads/features over tp.
 TOKENS_SPEC = P(("dp", "fsdp"), "sp")
@@ -227,18 +234,12 @@ def _layer_local(sp: SpmdContext, cfg: GPTConfig, params: Params,
     q|k|v projection, its block of the MLP width (or of the experts and
     their width) and its rows of the row-parallel projections."""
     b = params["blocks"]
-    H, hd, tp = cfg.n_heads, cfg.head_dim, sp.tp
 
     def leaf(name, key, **kw):
         return sp.local(b[name][key], index=i, **kw)
 
     def heads(t):  # [..., 3D] -> this rank's heads of q, k and v
-        if tp == 1:
-            return t
-        Hl = H // tp
-        t = t.reshape(*t.shape[:-1], 3, H, hd)
-        t = t[..., sp.tp_rank * Hl:(sp.tp_rank + 1) * Hl, :]
-        return t.reshape(*t.shape[:-3], 3 * Hl * hd)
+        return sp.qkv_heads(t, cfg.n_heads, cfg.head_dim)
 
     out: Params = {
         "ln1": {k: leaf("ln1", k) for k in b["ln1"]},
@@ -272,12 +273,14 @@ def _layer_local(sp: SpmdContext, cfg: GPTConfig, params: Params,
 def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
              sp: Optional[SpmdContext]) -> torch.Tensor:
     """Dropout whose mask is drawn at the global batch shape and cut to
-    this rank's rows, so a mesh run draws the one-rank run's masks."""
-    if sp is None or sp.batch_shards == 1:
+    this rank's rows (and sequence block), so a mesh run draws the
+    one-rank run's masks."""
+    if sp is None or sp.batch_shards * sp.sp == 1:
         return dropout(x, rate, gen)
-    B = x.shape[0]
+    B, T = x.shape[:2]
     return dropout(x, rate, gen,
-                   rows=(sp.batch_index * B, sp.batch_shards * B))
+                   rows=(sp.batch_index * B, sp.batch_shards * B),
+                   seq=(sp.sp_rank * T, sp.sp * T))
 
 
 def _qkv(cfg: GPTConfig, bp: Params, x: torch.Tensor,
@@ -358,7 +361,9 @@ def _block(cfg: GPTConfig, bp: Params, x: torch.Tensor,
     q, k, v = _qkv(cfg, bp, x, positions, sp)
     impl = resolved_attention_impl(cfg, x.device)
     blk = min(cfg.attention_block_size, 128)
-    if impl == "mha":
+    if sp is not None and sp.sp > 1:
+        attn = ring_attention(q, k, v, axis_name="sp", mesh=sp.mesh)
+    elif impl == "mha":
         attn = mha(q, k, v, causal=True)
     elif impl == "blockwise":
         attn = causal_blockwise_attention(
@@ -393,6 +398,67 @@ def _block_at(cfg: GPTConfig, params: Params, i: int, x: torch.Tensor,
     return _block(cfg, bp, x, positions, dropout_seed, sp)
 
 
+def _run_block(cfg: GPTConfig, params: Params, i: int, x: torch.Tensor,
+               positions: torch.Tensor, seed: Optional[int],
+               sp: Optional[SpmdContext], remat: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block ``i``, checkpointed under :func:`_remat_policy` when
+    ``remat``."""
+    if remat:
+        return checkpoint(_block_at, cfg, params, i, x, positions, seed, sp,
+                          use_reentrant=False, context_fn=_remat_context)
+    return _block_at(cfg, params, i, x, positions, seed, sp)
+
+
+def _pipelined(params: Params, cfg: GPTConfig, x: torch.Tensor,
+               positions: torch.Tensor, seeds: list,
+               sp: SpmdContext, remat: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block stack as a GPipe pipeline over ``pp``: this rank runs its
+    stage's layers on each of ``pipeline_microbatches`` microbatches of
+    its rows. The carrier is ``{"x": [B, T, D], "aux": [B]}``, each
+    layer's MoE aux spread over the microbatch's rows (summing recovers
+    it); the total is the mean over microbatches. Each layer's dropout
+    seed is shared by every microbatch, as in the JAX package."""
+    M = max(cfg.pipeline_microbatches, 1)
+    n_local = cfg.n_layers // sp.pp
+    first = sp.pp_rank * n_local
+
+    def stage_fn(blocks, carrier):
+        h, aux = carrier["x"], carrier["aux"]
+        stage = {"blocks": blocks}
+        for j in range(n_local):
+            h, a = _run_block(cfg, stage, j, h, positions, seeds[first + j],
+                              sp, remat)
+            aux = aux + a / h.shape[0]
+        return {"x": h, "aux": aux}
+
+    carrier = {"x": x, "aux": torch.zeros(x.shape[0], dtype=torch.float32,
+                                          device=x.device)}
+    out = pipeline_apply(stage_fn, params["blocks"], carrier, mesh=sp.mesh,
+                         num_microbatches=M)
+    return out["x"], out["aux"].sum() / M
+
+
+def _seq_block(t: Optional[torch.Tensor], sp: Optional[SpmdContext]
+               ) -> Optional[torch.Tensor]:
+    """This rank's rows of a batch tensor [B, T] and, over ``sp``, its
+    block of the sequence: a tensor split over ``sp`` (``TOKENS_SPEC``)
+    is that block already; a whole one is cut to it."""
+    if t is None:
+        return None
+    split = split_over(t, "sp", 1)
+    t = local_rows(t)
+    if sp is None or sp.sp == 1 or split:
+        return t
+    T = t.shape[1]
+    if T % sp.sp:
+        raise ValueError(f"sequence length {T} does not divide over the "
+                         f"'sp' axis of size {sp.sp}")
+    n = T // sp.sp
+    return t[:, sp.sp_rank * n:(sp.sp_rank + 1) * n]
+
+
 def _embed(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
            sp: Optional[SpmdContext]) -> torch.Tensor:
     """Token embeddings in the compute dtype; over ``tp`` each rank looks
@@ -422,24 +488,6 @@ def _logits(params: Params, cfg: GPTConfig, x: torch.Tensor,
         table = sp.local(params["embed"]["table"], keep={"tp": 0})
         return x @ table.float().T
     return x @ sp.local(params["lm_head"]["kernel"], keep={"tp": 1}).float()
-
-
-def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                   sp: Optional[SpmdContext]) -> torch.Tensor:
-    """Per-token loss; over ``tp`` the logits are this rank's vocabulary
-    block, and the logsumexp and the target's logit span all blocks."""
-    if sp is None or sp.tp == 1:
-        return softmax_cross_entropy(logits, targets)
-    Vl = logits.shape[-1]
-    with torch.no_grad():
-        m = sp.sum_(logits.max(-1).values, "tp",
-                    op=torch.distributed.ReduceOp.MAX)
-    z = sp.reduce_from((logits - m[..., None]).exp().sum(-1), "tp")
-    t = targets.long() - sp.tp_rank * Vl
-    inside = (t >= 0) & (t < Vl)
-    picked = logits.gather(-1, t.clamp(0, Vl - 1)[..., None]).squeeze(-1)
-    picked = sp.reduce_from(picked * inside, "tp")
-    return m + z.log() - picked
 
 
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -474,29 +522,33 @@ def _forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
     ``cfg.remat`` and autograd recording, each block is checkpointed under
     :func:`_remat_policy`."""
     sp = spmd_of(params["embed"]["table"])
-    tokens = local_rows(tokens)
-    if (sp is not None and sp.sizes.get("pp", 1) > 1
-            and cfg.pipeline_microbatches > 1):
-        raise NotImplementedError(
-            f"pipeline_microbatches={cfg.pipeline_microbatches} over pp="
-            f"{sp.sizes['pp']}: the GPipe pipeline is not ported yet "
-            f"({ROADMAP_PIPELINE})")
+    tokens = _seq_block(tokens, sp)
+    if sp is not None and sp.sp > 1 and cfg.moe_experts > 0:
+        raise ValueError("the MoE GPT over an 'sp' axis above 1 is not "
+                         "ported: its routing counts whole rows (ROADMAP.md,"
+                         " Queue 3: the MoE GPT over sp)")
     T = tokens.shape[1]
-    positions = torch.arange(T, device=tokens.device)
+    first = 0 if sp is None else sp.sp_rank * T   # global positions
+    positions = torch.arange(first, first + T, device=tokens.device)
     x = _embed(params, cfg, tokens, sp)
     seeds = [None] * cfg.n_layers
     if training and dropout_seed is not None and cfg.dropout > 0.0:
         seeds = [fold_seed(dropout_seed, i) for i in range(cfg.n_layers)]
     remat = cfg.remat and torch.is_grad_enabled()
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, seed in enumerate(seeds):
-        if remat:
-            x, aux = checkpoint(_block_at, cfg, params, i, x, positions,
-                                seed, sp, use_reentrant=False,
-                                context_fn=_remat_context)
-        else:
-            x, aux = _block_at(cfg, params, i, x, positions, seed, sp)
-        aux_total = aux_total + aux
+    if split_over(params["blocks"]["ln1"]["scale"], "pp", 0):
+        x, aux_total = _pipelined(params, cfg, x, positions, seeds, sp,
+                                  remat)
+    elif sp is not None and sp.pp > 1 and cfg.pipeline_microbatches > 1:
+        raise ValueError(
+            f"pipeline_microbatches={cfg.pipeline_microbatches} over pp="
+            f"{sp.pp} needs the blocks split over 'pp': place the params "
+            f"by GPT_PP_SHARDING_RULES")
+    else:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, seed in enumerate(seeds):
+            x, aux = _run_block(cfg, params, i, x, positions, seed, sp,
+                                remat)
+            aux_total = aux_total + aux
     norm = params["final_norm"]
     if sp is not None:
         norm = {k: sp.local(v) for k, v in norm.items()}
@@ -518,10 +570,10 @@ def apply(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
 
     logits = sp.gather_replicated(logits, logits.dim() - 1, "tp")
     B, T, V = logits.shape
+    B, T = B * sp.batch_shards, T * sp.sp
     return DTensor.from_local(
-        logits, sp.mesh, placements_for(batch_spec(2), sp.mesh),
-        run_check=False, shape=(B * sp.batch_shards, T, V),
-        stride=(T * V, V, 1))
+        logits, sp.mesh, placements_for(P(BATCH_AXES, "sp"), sp.mesh),
+        run_check=False, shape=(B, T, V), stride=(T * V, V, 1))
 
 
 def loss_fn(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
@@ -529,13 +581,16 @@ def loss_fn(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
             training: bool = False,
             dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross-entropy (fp32), plus ``moe_aux_weight`` times
-    the MoE aux loss. targets/mask: [B, T]. Over a mesh the mean is the
-    global batch's, the same value on every rank, and each rank's
-    backward yields its own rows' share of the gradients."""
+    the MoE aux loss. targets/mask: [B, T], shifted on the whole sequence
+    (before any split over ``sp``). Over a mesh the mean is the global
+    batch's, the same value on every rank, and each rank's backward
+    yields its own rows' (and tokens') share of the gradients."""
     logits, aux = _forward(params, cfg, tokens, training=training,
                            dropout_seed=dropout_seed)
     sp = spmd_of(params["embed"]["table"])
-    per_tok = _cross_entropy(logits, local_rows(targets), sp)
+    targets = _seq_block(targets, sp)
+    per_tok = (softmax_cross_entropy(logits, targets) if sp is None
+               else sp.cross_entropy(logits, targets))
     if sp is None:
         if mask is None:
             ce = per_tok.mean()
@@ -544,11 +599,13 @@ def loss_fn(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
             ce = (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
     elif mask is None:
         # the blocks are equal: the global mean is the mean of the means
-        ce = sp.batch_sum(per_tok.mean() / sp.batch_shards)
+        ce = sp.reduce_from(per_tok.mean() / (sp.batch_shards * sp.sp),
+                            *BATCH_AXES, "sp")
     else:
-        maskf = local_rows(mask).float()
-        count = sp.batch_sum_(maskf.sum()).clamp_min(1.0)
-        ce = sp.batch_sum((per_tok * maskf).sum() / count)
+        maskf = _seq_block(mask, sp).float()
+        count = sp.sum_(maskf.sum(), *BATCH_AXES, "sp").clamp_min(1.0)
+        ce = sp.reduce_from((per_tok * maskf).sum() / count,
+                            *BATCH_AXES, "sp")
     if cfg.moe_experts > 0:
         ce = ce + cfg.moe_aux_weight * aux
     return ce

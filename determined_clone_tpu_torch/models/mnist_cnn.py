@@ -9,7 +9,7 @@ feed them permuted (it would train, and disagree with every checkpoint).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -61,11 +61,14 @@ def _generator(seed: int, device: torch.device) -> torch.Generator:
 
 def apply(params: Params, cfg: MnistCNNConfig, x: torch.Tensor, *,
           training: bool = False,
-          dropout_seed: Optional[int] = None) -> torch.Tensor:
+          dropout_seed: Optional[int] = None,
+          rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x: [B, 28, 28, 1] NHWC (flat [B, 784] accepted) → logits [B, C]
     (fp32). Dropout is on when ``training`` and ``dropout_seed`` is given:
     the two layers draw from the seeds ``fold_seed(dropout_seed, 0)`` and
-    ``(…, 1)``, where the JAX model splits its dropout key in two."""
+    ``(…, 1)``, where the JAX model splits its dropout key in two. With
+    ``rows=(first, total)`` (``x`` is those rows of a larger batch) the
+    masks are the whole batch's, cut to them."""
     if x.dim() == 2:
         x = x.reshape(-1, 28, 28, 1)
     g1 = g2 = None
@@ -77,16 +80,17 @@ def apply(params: Params, cfg: MnistCNNConfig, x: torch.Tensor, *,
     x = _maxpool2(x)
     x = torch.relu(conv2d(params["conv2"], x, compute_dtype=cd))
     x = _maxpool2(x)
-    x = dropout(x, cfg.dropout_1, g1)
+    x = dropout(x, cfg.dropout_1, g1, rows=rows)
     x = x.reshape(x.shape[0], -1)  # (H, W, C) order, as the JAX model
     x = torch.relu(dense(params["fc1"], x, compute_dtype=cd))
-    x = dropout(x, cfg.dropout_2, g2)
+    x = dropout(x, cfg.dropout_2, g2, rows=rows)
     return dense(params["fc2"], x, compute_dtype=cd).float()
 
 
 def loss_fn(params: Params, cfg: MnistCNNConfig, x: torch.Tensor,
             y: torch.Tensor, *, training: bool = False,
-            dropout_seed: Optional[int] = None) -> torch.Tensor:
+            dropout_seed: Optional[int] = None,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     logits = apply(params, cfg, x, training=training,
-                   dropout_seed=dropout_seed)
+                   dropout_seed=dropout_seed, rows=rows)
     return softmax_cross_entropy(logits, y).mean()

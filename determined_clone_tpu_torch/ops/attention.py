@@ -7,13 +7,15 @@ is the streaming form, O(T·block) memory: the GPT block's "blockwise"
 attention and the recompute that the flash kernel's backward
 differentiates. The public functions keep the JAX package's
 ``[B, T, H, D]`` layout. ``ring_attention`` and ``ulysses_attention``
-(sequence parallelism over the ``sp`` mesh axis) belong to the second
-half of the parallelism slice and raise until then.
+are sequence parallelism over a mesh axis (``sp``): plain PyTorch and
+``torch.distributed``, as the JAX functions are plain JAX inside a
+``shard_map``; they take the DeviceMesh where the JAX ones take the
+``shard_map``'s axis name alone.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -108,24 +110,117 @@ def causal_blockwise_attention(q: torch.Tensor, k: torch.Tensor,
     return out.to(dtype)
 
 
-ROADMAP_SP = ("ROADMAP.md, Queue 1: parallelism, second half (ring and "
-              "Ulysses attention over sp)")
+def _sp_context(mesh: Any, axis_name: str):
+    from determined_clone_tpu_torch.parallel.spmd import SpmdContext
+
+    ctx = SpmdContext(mesh)
+    if axis_name not in ctx.sizes:
+        raise ValueError(f"the mesh has no axis {axis_name!r}")
+    return ctx
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   axis_name: str, axis_index: Optional[torch.Tensor] = None,
-                   axis_size: int = 1) -> torch.Tensor:
-    """Ring attention over the ``sp`` axis: not ported yet."""
-    raise NotImplementedError(f"ring_attention over {axis_name!r} is not "
-                              f"ported yet ({ROADMAP_SP})")
+                   axis_name: str, mesh: Any,
+                   axis_index: Optional[int] = None,
+                   axis_size: Optional[int] = None) -> torch.Tensor:
+    """Causal ring attention: the sequence axis is split over mesh axis
+    ``axis_name``; Q stays put while the K/V blocks travel the ring
+    (``SpmdContext.shift``, whose backward is the reverse shift), so
+    every query block sees the whole sequence with only neighbour
+    traffic. Each step merges one block into an fp32 online softmax.
+
+    q,k,v: [B, T_local, H, D], this rank's block of the sequence; its
+    queries' global positions are axis_index*T_local + [0, T_local).
+    ``axis_index``/``axis_size`` default to this rank's coordinate and
+    the axis' size on ``mesh`` (a DeviceMesh), and must agree with them.
+    Blocks wholly above the diagonal are computed and masked, as in the
+    JAX loop.
+    """
+    ctx = _sp_context(mesh, axis_name)
+    n, me = ctx.sizes[axis_name], ctx.coord[axis_name]
+    if (axis_size, axis_index) != (None, None) and (
+            axis_size != n or int(axis_index) != me):
+        raise ValueError(f"axis_index/axis_size ({axis_index}, {axis_size}) "
+                         f"disagree with the mesh's {axis_name!r}: ({me}, "
+                         f"{n})")
+    B, T, H, D = q.shape
+    scale = 1.0 / (D ** 0.5)
+    acc = torch.zeros((B, T, H, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, T), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, T), dtype=torch.float32, device=q.device)
+    for i in range(n):
+        # the K/V held now came from rank (me - i) mod n
+        src = (me - i) % n
+        bmask = _causal_mask(T, T, q_offset=me * T, k_offset=src * T,
+                             device=q.device)
+        acc, m, l = _online_softmax_block((acc, m, l), q, k, v,
+                                          bmask[None, None], scale)
+        if i < n - 1:   # the JAX loop's last rotation is never read
+            k, v = ctx.shift((k, v), axis_name)
+    out = acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block j of dimension 0 to rank j of ``group``, block r of the
+    result from rank r; the backward sends each gradient block back."""
+
+    @staticmethod
+    def forward(ctx, blocks, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = torch.empty_like(blocks)
+        dist.all_to_all_single(out, blocks.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g.contiguous(), ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, scatter_dim: int, concat_dim: int,
+                n: int, group) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: ``x`` cut into n blocks along
+    ``scatter_dim``, block j sent to rank j; the blocks received are
+    joined along ``concat_dim`` in rank order. Differentiable (the
+    backward is the reverse all-to-all)."""
+    got = _AllToAll.apply(torch.stack(x.chunk(n, scatter_dim)), group)
+    return torch.cat(got.unbind(0), concat_dim)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      axis_name: str, causal: bool = True) -> torch.Tensor:
-    """Ulysses (all-to-all) attention over the ``sp`` axis: not ported
-    yet."""
-    raise NotImplementedError(f"ulysses_attention over {axis_name!r} is not "
-                              f"ported yet ({ROADMAP_SP})")
+                      axis_name: str, mesh: Any,
+                      causal: bool = True) -> torch.Tensor:
+    """All-to-all (DeepSpeed-Ulysses) sequence parallelism, the
+    complement of ``ring_attention``: the sequence arrives split over
+    ``axis_name``; all-to-alls reshard q/k/v to head-parallel layout
+    ([B, T, H/sp, D]: the whole sequence for a slice of heads), ``mha``
+    runs locally, and a last all-to-all reshards the output back. Four
+    all-to-alls in all, each differentiable (its backward is the reverse
+    all-to-all).
+
+    q,k,v: [B, T_local, H, D]; H must be divisible by the axis size.
+    """
+    ctx = _sp_context(mesh, axis_name)
+    sp = ctx.sizes[axis_name]
+    if q.shape[2] % sp != 0:
+        raise ValueError(
+            f"ulysses_attention requires the head count ({q.shape[2]}) to "
+            f"be divisible by the '{axis_name}' axis size ({sp}); use "
+            f"ring_attention for indivisible head counts")
+    if sp == 1:
+        return mha(q, k, v, causal=causal)
+    group = ctx.groups[axis_name]
+
+    def a2a(x, scatter_dim, concat_dim):
+        return _all_to_all(x, scatter_dim, concat_dim, sp, group)
+
+    # [B, T/sp, H, D] -> [B, T, H/sp, D]: scatter heads, gather sequence
+    qh, kh, vh = (a2a(t, 2, 1) for t in (q, k, v))
+    out = mha(qh, kh, vh, causal=causal)
+    # [B, T, H/sp, D] -> [B, T/sp, H, D]
+    return a2a(out, 1, 2)
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, *,

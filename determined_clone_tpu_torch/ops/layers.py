@@ -269,7 +269,8 @@ def fold_seed(seed: int, *data: int) -> int:
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            rows: Optional[Tuple[int, int]] = None,
+            seq: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``; ``x`` as it is when ``generator``
     is None (not training) or ``rate`` is 0. The mask is drawn from
@@ -279,14 +280,21 @@ def dropout(x: torch.Tensor, rate: float,
     ``rows=(first, total)``, ``x`` is rows ``first:first + len(x)`` of a
     batch of ``total`` rows: the mask is drawn at the whole batch's shape
     and cut to those rows, so every split of the batch draws the same
-    masks."""
+    masks; ``seq=(first, total)`` does the same for dimension 1 (a block
+    of the sequence)."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    shape = x.shape if rows is None else (rows[1], *x.shape[1:])
+    shape = list(x.shape)
+    if rows is not None:
+        shape[0] = rows[1]
+    if seq is not None:
+        shape[1] = seq[1]
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     if rows is not None:
         mask = mask[rows[0]:rows[0] + x.shape[0]]
+    if seq is not None:
+        mask = mask[:, seq[0]:seq[0] + x.shape[1]]
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 

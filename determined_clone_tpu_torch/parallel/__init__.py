@@ -1,6 +1,5 @@
-"""Parallelism: meshes and partition specs — the port of
-``determined_clone_tpu/parallel`` without the pipeline (``pipeline_*``)
-and ``scaling_bench``, which come with the second half of the slice
+"""Parallelism: meshes, partition specs and the GPipe pipeline — the
+port of ``determined_clone_tpu/parallel`` but for ``scaling_bench``
 (``ROADMAP.md``). ``spmd`` holds the per-rank collectives the JAX package
 leaves to XLA's partitioner.
 """
@@ -12,6 +11,11 @@ from determined_clone_tpu_torch.parallel.mesh import (
     make_multislice_mesh,
     mesh_axis_size,
     single_device_mesh,
+)
+from determined_clone_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    pipeline_bubble_fraction,
+    pipeline_stage_spec,
 )
 from determined_clone_tpu_torch.parallel.sharding import (
     NamedSharding,
@@ -35,6 +39,9 @@ __all__ = [
     "make_multislice_mesh",
     "mesh_axis_size",
     "single_device_mesh",
+    "pipeline_apply",
+    "pipeline_bubble_fraction",
+    "pipeline_stage_spec",
     "NamedSharding",
     "P",
     "PartitionSpec",

@@ -16,10 +16,18 @@ Megatron style:
   Activations enter a split region through :func:`copy_to` (identity
   forward, all-reduce of the gradient) and partial sums leave it through
   :func:`reduce_from` (all-reduce forward, identity backward);
-- the batch is split over ``dp`` × ``fsdp``: losses are the global
-  batch's (a :func:`reduce_from` over those axes), and after the
-  backward each gradient is summed over the batch axes it is not
-  sharded on (:meth:`SpmdContext.reduce_grads`).
+- the batch is split over ``dp`` × ``fsdp`` (and the GPT's sequence
+  over ``sp``): losses are the global batch's (a :func:`reduce_from`
+  over those axes), and after the backward each gradient is summed over
+  the data axes it is not sharded on (:meth:`SpmdContext.reduce_grads`);
+- ``pp`` and ``sp`` move activations between neighbours of a ring
+  (:meth:`SpmdContext.shift`: one ``batch_isend_irecv`` whose backward
+  is the reverse shift), for the GPipe pipeline (``parallel/
+  pipeline.py``) and ring attention (``ops/attention.py``);
+- a model with no collectives of its own (mnist, ResNet: the default
+  ``ShardingRules()``) runs through :func:`replicated_program`: every
+  sharded leaf gathered whole before the model runs, each gradient
+  summed back onto its shard, the result the global batch's mean.
 
 Collectives over an axis of size 1 are skipped, so a one-rank mesh runs
 the one-card program. Reductions run in fp32 whatever the tensor's dtype.
@@ -27,18 +35,40 @@ the one-card program. Reductions run in fp32 whatever the tensor's dtype.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
 
+from determined_clone_tpu_torch.core._serialization import (
+    tree_map_with_path,
+    tree_paths_and_leaves,
+)
+
 BATCH_AXES = ("dp", "fsdp")
+# the axes that split the data: the ranks along them compute other rows
+# (or, over sp, other tokens), so a parameter replicated over one of them
+# has its gradient summed over it
+DATA_AXES = BATCH_AXES + ("sp",)
 
 
 def _is_dtensor(t: Any) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(t, DTensor)
+
+
+def split_over(t: Any, axis: str, dim: int) -> bool:
+    """True for a DTensor whose dimension ``dim`` is sharded over mesh
+    axis ``axis`` (placements name no axis of size 1)."""
+    if not _is_dtensor(t):
+        return False
+    from torch.distributed.tensor import Shard
+
+    return any(isinstance(pl, Shard) and pl.dim == dim and name == axis
+               for pl, name in zip(t.placements,
+                                   t.device_mesh.mesh_dim_names))
 
 
 def local_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -62,8 +92,9 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    out = x.detach().float().clone() if x.dtype != torch.float32 else \
-        x.detach().clone()
+    # a contiguous copy: NCCL refuses strided tensors (a convolution's
+    # channels-last weight gradient is one)
+    out = x.detach().float().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=group)
     return out.to(x.dtype)
 
@@ -124,6 +155,69 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """bf16 travels as int16 (gloo has no bf16); other dtypes as they are."""
+    t = t.contiguous()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+# the groups a point-to-point call has opened, kept alive so that an id
+# is never reused by another group
+_P2P_OPENED: Dict[int, Any] = {}
+
+
+def _p2p(sends: Sequence[torch.Tensor], dst: Optional[int],
+         like: Sequence[torch.Tensor], src: Optional[int], group
+         ) -> List[torch.Tensor]:
+    """One ``batch_isend_irecv`` on ``group`` (peers are group ranks):
+    ``sends`` to ``dst`` and tensors shaped as ``like`` from ``src``;
+    either side may be None. Returns the received tensors."""
+    if id(group) not in _P2P_OPENED:
+        # NCCL wants every rank of a group in its first call; the ticks
+        # of a pipeline pair only some ranks, so open the group with an
+        # all-reduce first
+        probe = torch.zeros(1, device=sends[0].device if sends
+                            else like[0].device)
+        dist.all_reduce(probe, group=group)
+        _P2P_OPENED[id(group)] = group
+    ops, out = [], []
+    if dst is not None:
+        peer = dist.get_global_rank(group, dst)
+        ops += [dist.P2POp(dist.isend, _wire(t), peer, group) for t in sends]
+    if src is not None:
+        peer = dist.get_global_rank(group, src)
+        out = [torch.empty_like(t, memory_format=torch.contiguous_format)
+               for t in like]
+        ops += [dist.P2POp(dist.irecv, _wire(t), peer, group) for t in out]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """Send ``xs`` to group rank ``dst`` and receive their like from
+    ``src`` (either None: no send, or no receive — then the outputs are
+    the zeros of ``xs``). The backward runs the reverse: the received
+    tensors' gradients go to ``src``, and ``xs``' come from ``dst``.
+    Every rank of a ring calls it alike, so the sends and receives pair
+    up in the forward and again in the backward."""
+
+    @staticmethod
+    def forward(ctx, src, dst, group, *xs):
+        ctx.src, ctx.dst, ctx.group = src, dst, group
+        got = _p2p(xs, dst, xs, src, group)
+        return tuple(got) if src is not None else tuple(
+            torch.zeros_like(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        back = _p2p(gs, ctx.src, gs, ctx.dst, ctx.group)
+        if ctx.dst is None:
+            back = [None] * len(gs)
+        return (None, None, None, *back)
+
+
 class SpmdContext:
     """One rank's view of a DeviceMesh: axis sizes, its coordinate, the
     process group of each axis of size > 1, and the collectives above."""
@@ -143,6 +237,8 @@ class SpmdContext:
                             + self.coord.get("fsdp", 0))
         self.tp, self.tp_rank = self.sizes.get("tp", 1), self.coord.get("tp", 0)
         self.ep, self.ep_rank = self.sizes.get("ep", 1), self.coord.get("ep", 0)
+        self.pp, self.pp_rank = self.sizes.get("pp", 1), self.coord.get("pp", 0)
+        self.sp, self.sp_rank = self.sizes.get("sp", 1), self.coord.get("sp", 0)
 
     # -- collectives ---------------------------------------------------------
 
@@ -179,6 +275,54 @@ class SpmdContext:
             x = _all_reduce(x, self.groups[a], op)
         return x
 
+    def shift(self, xs: Sequence[torch.Tensor], axis: str, *,
+              send: bool = True, recv: bool = True
+              ) -> Tuple[torch.Tensor, ...]:
+        """``xs`` sent to the next rank of ``axis`` (coordinate + 1, mod
+        its size) while the previous rank's are received, differentiably
+        (the backward shifts the gradients back). ``send=False`` or
+        ``recv=False`` leaves out this rank's half, which its neighbour
+        must leave out alike; without a receive the result is zeros."""
+        n, c = self.sizes[axis], self.coord[axis]
+        return _Shift.apply((c - 1) % n if recv else None,
+                            (c + 1) % n if send else None,
+                            self.groups[axis], *xs)
+
+    def qkv_heads(self, t: torch.Tensor, n_heads: int,
+                  head_dim: int) -> torch.Tensor:
+        """This rank's heads of q, k and v from a fused ``[..., 3·D]``
+        projection (Megatron's column split is not head-aligned on the
+        stored ``[3D]`` blocks, so the caller takes the whole and keeps
+        its heads)."""
+        if self.tp == 1:
+            return t
+        n = n_heads // self.tp
+        t = t.reshape(*t.shape[:-1], 3, n_heads, head_dim)
+        t = t[..., self.tp_rank * n:(self.tp_rank + 1) * n, :]
+        return t.reshape(*t.shape[:-3], 3 * n * head_dim)
+
+    def cross_entropy(self, logits: torch.Tensor, targets: torch.Tensor
+                      ) -> torch.Tensor:
+        """Per-token loss of logits whose last dimension is this rank's
+        block of the vocabulary over ``tp`` (Megatron's vocab-parallel
+        cross-entropy: the logsumexp and the target's logit span every
+        block); plain cross-entropy when ``tp`` is 1."""
+        from determined_clone_tpu_torch.ops.layers import (
+            softmax_cross_entropy,
+        )
+
+        if self.tp == 1:
+            return softmax_cross_entropy(logits, targets)
+        logits, Vl = logits.float(), logits.shape[-1]
+        with torch.no_grad():
+            m = self.sum_(logits.max(-1).values, "tp", op=dist.ReduceOp.MAX)
+        z = self.reduce_from((logits - m[..., None]).exp().sum(-1), "tp")
+        t = targets.long() - self.tp_rank * Vl
+        inside = (t >= 0) & (t < Vl)
+        picked = logits.gather(-1, t.clamp(0, Vl - 1)[..., None]).squeeze(-1)
+        picked = self.reduce_from(picked * inside, "tp")
+        return m + z.log() - picked
+
     def gather_batch(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` of every batch block stacked on a new leading dim, in
         batch order (dp-major), without gradient."""
@@ -198,7 +342,8 @@ class SpmdContext:
         tensor replicated everywhere), differentiable.
 
         ``index`` first selects along dimension 0 (a layer of a stacked
-        block). ``keep`` maps an axis to the dimension (after ``index``)
+        block); when ``pp`` splits dimension 0 (a pipeline stage's
+        layers), ``index`` counts within this rank's block. ``keep`` maps an axis to the dimension (after ``index``)
         whose block of that axis this rank computes with: a stored shard
         stays as it is, a replicated tensor is cut to the block. Every
         other sharded dimension is all-gathered. ``split`` names axes over
@@ -221,6 +366,8 @@ class SpmdContext:
             if not isinstance(pl, Shard) or self.sizes[axis] == 1:
                 continue
             d = pl.dim - shift
+            if d < 0 and axis == "pp":
+                continue   # the stage's own layers, indexed above
             if d < 0:
                 raise ValueError(f"dimension 0 is sharded over {axis!r}; "
                                  f"cannot index it")
@@ -240,12 +387,31 @@ class SpmdContext:
                 t = self.copy_to(t, axis)
         return t
 
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``t`` whole on this rank, differentiable: gathered
+        over every axis that shards it. The backward sums the gradient
+        over the data axes among them (their ranks computed other rows)
+        and keeps this rank's block over the rest (they computed
+        alike)."""
+        if not _is_dtensor(t):
+            return t
+        from torch.distributed.tensor import Shard
+
+        placements, t = t.placements, local_tensor(t)
+        for md in reversed(range(len(placements))):
+            pl, axis = placements[md], self.names[md]
+            if isinstance(pl, Shard) and self.sizes[axis] > 1:
+                t = (self.gather if axis in DATA_AXES
+                     else self.gather_replicated)(t, pl.dim, axis)
+        return t
+
     def reduce_grads(self, params: Sequence[torch.Tensor],
                      grads: Sequence[torch.Tensor]) -> None:
         """Sum the local gradient of each DTensor parameter, in place, over
-        the batch axes the parameter is replicated on: the ranks of those
-        axes computed it from their own rows. (Over an axis the parameter
-        is sharded on, the all-gather's backward has summed already.)"""
+        the data axes the parameter is replicated on: the ranks of those
+        axes computed it from their own rows (or tokens). (Over an axis
+        the parameter is sharded on, the all-gather's backward has summed
+        already.)"""
         from torch.distributed.tensor import Shard
 
         for p, local in zip(params, grads):
@@ -253,7 +419,7 @@ class SpmdContext:
                 continue
             for md, pl in enumerate(p.placements):
                 axis = self.names[md]
-                if (axis in BATCH_AXES and self.sizes[axis] > 1
+                if (axis in DATA_AXES and self.sizes[axis] > 1
                         and not isinstance(pl, Shard)):
                     local.copy_(_all_reduce(local, self.groups[axis]))
 
@@ -291,3 +457,45 @@ def spmd_of(t: Any) -> Optional[SpmdContext]:
 def local_rows(t: Any) -> torch.Tensor:
     """A batch's local rows: the local tensor of a DTensor, else ``t``."""
     return local_tensor(t)
+
+
+def replicated_program(fn: Callable[..., Any], params: Any, *batch: Any,
+                       **kwargs: Any) -> Any:
+    """``fn(params, *batch, rows=..., **kwargs)`` run as the JAX package
+    runs a model that places no collectives of its own (the default
+    ``ShardingRules()``: large leaves scattered over ``fsdp``,
+    ``_auto_fsdp_spec``) — parameters whole in the forward, optimizer
+    state scattered.
+
+    Over a mesh (DTensor ``params``): every leaf gathered whole
+    (:meth:`SpmdContext.whole`, the gradient summed back onto its shard),
+    each batch leaf this rank's rows, and ``fn``'s result — a tensor or a
+    dict of tensors, each a mean over the rows — made the global batch's
+    mean. ``rows=(first, total)`` tells ``fn`` which rows of the global
+    batch it holds (dropout draws its masks at the global shape). Without
+    a mesh ``fn`` runs as it is, with ``rows=None``. The data must not be
+    split over ``sp``: these models have no sequence parallelism."""
+    first = next((t for _p, t in tree_paths_and_leaves(params)
+                  if _is_dtensor(t)), None)
+    sp = spmd_of(first)
+    if sp is None:
+        return fn(params, *batch, rows=None, **kwargs)
+    if sp.sp > 1:
+        raise ValueError(f"an 'sp' axis of size {sp.sp}: sequence "
+                         f"parallelism is the GPT's (models/gpt.py); this "
+                         f"model has none")
+    whole = tree_map_with_path(lambda _p, t: sp.whole(t)
+                               if isinstance(t, torch.Tensor) else t, params)
+    local = [tree_map_with_path(lambda _p, t: local_rows(t), b)
+             for b in batch]
+    n = next(t for _p, t in tree_paths_and_leaves(local)
+             if isinstance(t, torch.Tensor)).shape[0]
+    out = fn(whole, *local, rows=(sp.batch_index * n, sp.batch_shards * n),
+             **kwargs)
+
+    def mean(v: torch.Tensor) -> torch.Tensor:
+        return sp.batch_sum(v / sp.batch_shards)
+
+    if isinstance(out, dict):
+        return {k: mean(v) for k, v in out.items()}
+    return mean(out)

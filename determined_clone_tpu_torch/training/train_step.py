@@ -13,9 +13,12 @@ Over a mesh, ``state_shardings`` places the state as the JAX package
 does (Adam moments take their parameter's sharding, scalars replicate)
 and ``shard_state`` makes its tensors DTensors. The same step then takes
 the DTensor state and a DTensor batch: the loss is the global batch's
-(the model reduces it), and each gradient is summed over the batch axes
-before the update (``parallel/spmd.py``), so loss, gradients and
-``grad_norm`` are those of the global batch.
+(the model reduces it), and each gradient is summed over the data axes
+(the batch's, and ``sp`` for a sequence split) before the update
+(``parallel/spmd.py``), so loss, gradients and ``grad_norm`` are those
+of the global batch. ``pp``-split leaves (``GPT_PP_SHARDING_RULES``)
+are placed, updated and saved as any other sharded leaf: each stage's
+ranks hold and step only its layers.
 """
 from __future__ import annotations
 

@@ -265,7 +265,11 @@ def test_resnet_trial_through_both_trainers(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_trials_refuse_a_mesh_and_need_the_card(tmp_path):
+def test_trials_take_a_mesh_and_need_the_card(tmp_path):
+    """The trials accept ``distributed.yaml``'s meshes (their parity on
+    gloo ranks is ``tests/test_torch_family_mesh.py``); the trial's loss,
+    through ``replicated_program`` with no mesh, is the JAX model's on
+    the same params and batch; the card is the default device."""
     cfg = TConfig.from_dict({})
     with tcore.init(config=cfg, storage_path=str(tmp_path)) as ctx:
         if not torch.cuda.is_available():
@@ -274,20 +278,33 @@ def test_trials_refuse_a_mesh_and_need_the_card(tmp_path):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 tbert_ft.main(ctx, types.SimpleNamespace(
                     hparams={}, latest_checkpoint=None))
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            tresnet_trial.ResNetTrial(TContext(
-                config=cfg, hparams={**RESNET_HP,
-                                     "mesh": {"dp": 4, "fsdp": 2}},
-                core=ctx, device="cpu"))
+        meshed = tresnet_trial.ResNetTrial(TContext(
+            config=cfg, hparams={**RESNET_HP,
+                                 "mesh": {"dp": 4, "fsdp": 2}},
+            core=ctx, device="cpu"))
+        assert meshed.cfg.depth == RESNET_HP["depth"]
         trial = tresnet_trial.ResNetTrial(TContext(
             config=cfg, hparams={**RESNET_HP, "mesh": {"dp": 1}}, core=ctx,
             device="cpu"))
         assert trial.cfg.compute_dtype == torch.bfloat16  # the default
-        mt = tmnist_trial.MnistTrial(TContext(config=cfg, hparams={},
-                                              core=ctx, device="cpu"))
-        assert (mt.cfg.n_filters_1, mt.cfg.n_filters_2, mt.cfg.dropout_1,
-                mt.cfg.dropout_2) == (32, 64, 0.25, 0.5)
-        assert mt.global_batch_size == 32
+        mt = tmnist_trial.MnistTrial(TContext(
+            config=cfg, hparams={**MNIST_HP, "mesh": {"dp": 8}}, core=ctx,
+            device="cpu"))
+        assert mt.global_batch_size == 16
+        default = tmnist_trial.MnistTrial(TContext(config=cfg, hparams={},
+                                                   core=ctx, device="cpu"))
+        assert (default.cfg.n_filters_1, default.cfg.n_filters_2,
+                default.cfg.dropout_1, default.cfg.dropout_2) == (
+                    32, 64, 0.25, 0.5)
+        assert default.global_batch_size == 32
+    jcfg = jmnist.MnistCNNConfig(n_filters_1=4, n_filters_2=8)
+    init_np = jax.device_get(jmnist.init(jax.random.PRNGKey(3), jcfg))
+    x, y = next(iter(mt.training_data()))
+    want = float(jmnist.loss_fn(init_np, jcfg, jnp.asarray(x),
+                                jnp.asarray(y)))
+    got, _ = mt.loss(convert.params_from_numpy(init_np, "cpu"),
+                     (torch.from_numpy(x), torch.from_numpy(y)), 0)
+    assert abs(float(got) / want - 1) <= 1e-5
 
 
 # -- BERT fine-tune through the Core API -----------------------------------------

@@ -59,17 +59,33 @@ CLIP = 0.5     # the tiny GPT's first gradient norm is ~1.9: the clip binds
 LAUNCH_TIMEOUT = 240
 
 
-def launch_ranks(n, worker, d, timeout=LAUNCH_TIMEOUT, script=__file__):
-    """Run ``worker`` of ``script`` (this file) on ``n`` gloo ranks; fail
-    on any rank's failure, with the ranks' output."""
+def start_ranks(n, worker, d, timeout=LAUNCH_TIMEOUT, script=__file__):
+    """Start ``worker`` of ``script`` (this file) on ``n`` gloo ranks;
+    :func:`join_ranks` waits for them."""
     cmd = [sys.executable, "-m", "determined_clone_tpu_torch.exec.launch",
            "--nprocs", str(n), "--device", "cpu", "--timeout", str(timeout),
            "--", sys.executable, os.path.abspath(script), worker, str(d)]
     env = {**os.environ, "PYTHONPATH": REPO}
-    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                       text=True, timeout=timeout + 60)
-    assert r.returncode == 0, (r.returncode, r.stdout[-2000:],
-                               r.stderr[-6000:])
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def join_ranks(proc, timeout=LAUNCH_TIMEOUT):
+    """Wait for ranks :func:`start_ranks` started; fail on any rank's
+    failure, with the ranks' output."""
+    try:
+        out, err = proc.communicate(timeout=timeout + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    assert proc.returncode == 0, (proc.returncode, out[-2000:],
+                                  err[-6000:])
+
+
+def launch_ranks(n, worker, d, timeout=LAUNCH_TIMEOUT, script=__file__):
+    """Run ``worker`` of ``script`` (this file) on ``n`` gloo ranks; fail
+    on any rank's failure, with the ranks' output."""
+    join_ranks(start_ranks(n, worker, d, timeout, script), timeout)
 
 
 # -- MeshSpec and the rules ----------------------------------------------------
@@ -276,7 +292,7 @@ def test_adamw_steps_match_jax_on_the_mesh(tmp_path, model, sizes):
     assert out["allgather"] == list(range(len(out["allgather"])))
     assert out["clip_equal"] and out["norm_rel"] <= 1e-6
     if len(out["allgather"]) == 2:
-        assert out["pp_refused"] is True
+        assert out["pp_matches"] is True
     if len(out["allgather"]) == 4:
         # slice-major ranks, as the JAX function orders devices
         jm = jmesh.make_multislice_mesh(jmesh.MeshSpec(dp=1, tp=2),
@@ -312,7 +328,8 @@ def test_dropout_two_ranks_equal_one_rank(tmp_path):
     assert abs(plain[0][1] / ones[0][1] - 1) > 100 * 1e-5  # grad norms
 
 
-def _port_steps(cfg, params, batches, mesh=None):
+def _port_steps(cfg, params, batches, mesh=None,
+                rules=tgpt.GPT_SHARDING_RULES):
     """The port's steps on one rank (``mesh`` None) or on ``mesh``."""
     tcfg = tgpt.GPTConfig(**cfg, compute_dtype=torch.float32)
     tx = _tx(optim)
@@ -321,7 +338,7 @@ def _port_steps(cfg, params, batches, mesh=None):
     place = None
     if mesh is not None:
         state = tts.shard_state(state, tts.state_shardings(
-            state, mesh, tgpt.GPT_SHARDING_RULES))
+            state, mesh, rules))
         place = tsh.NamedSharding(mesh, tsh.batch_spec(1))
 
     def loss(p, b, seed):
@@ -360,20 +377,17 @@ def _clip_check(mesh, params):
     return equal, abs(sharded_norm / full_norm - 1)
 
 
-def _pp_refusal(spec):
-    """The GPipe pipeline (``pipeline_microbatches > 1`` over ``pp > 1``)
-    raises, naming its ROADMAP.md item."""
+def _pp_parity(spec):
+    """The GPipe pipeline (``pipeline_microbatches=2`` over ``pp: 2``,
+    params placed by ``GPT_PP_SHARDING_RULES``): its loss and gradient
+    norm equal the one-rank port's within 1e-5 relative."""
     mesh = tmesh.make_mesh(tmesh.MeshSpec.from_dict({"dp": 1, "pp": 2}))
-    cfg = tgpt.GPTConfig(**spec["cfg"], pipeline_microbatches=2)
-    params = tsh.shard_put(
-        convert.params_from_numpy(spec["params"], device="cpu"),
-        tgpt.GPT_SHARDING_RULES.shardings_for(spec["params"], mesh))
-    tokens = torch.from_numpy(spec["batches"][0]).long()
-    try:
-        tgpt.loss_fn(params, cfg, tokens[:, :-1], tokens[:, 1:])
-    except NotImplementedError as e:
-        return "ROADMAP.md" in str(e) and "pp" in str(e)
-    return False
+    cfg = dict(spec["cfg"], pipeline_microbatches=2)
+    piped, _ = _port_steps(cfg, spec["params"], spec["batches"][:1], mesh,
+                           rules=tgpt.GPT_PP_SHARDING_RULES)
+    alone, _ = _port_steps(cfg, spec["params"], spec["batches"][:1])
+    (pl, pg), (ol, og) = piped[0], alone[0]
+    return abs(pl / ol - 1) <= 1e-5 and abs(pg / og - 1) <= 1e-5
 
 
 def _apply_check(mesh, spec):
@@ -407,12 +421,17 @@ def _flash_refuses_dtensors(mesh):
     return False
 
 
-def test_sequence_parallel_attention_refuses_naming_the_roadmap():
-    from determined_clone_tpu_torch.ops import attention as tatt
-    q = torch.zeros((1, 4, 2, 8))
-    for fn in (tatt.ring_attention, tatt.ulysses_attention):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*sp"):
-            fn(q, q, q, axis_name="sp")
+def test_sequence_parallel_attention_matches_mha_on_two_ranks(tmp_path):
+    """Ring and Ulysses attention at sp 2 (two gloo ranks): each rank's
+    block of the output and of the gradients equal the port's ``mha`` on
+    the whole sequence, and Ulysses refuses indivisible heads.
+    ``tests/test_torch_pipeline.py`` holds both against JAX at sp 4."""
+    launch_ranks(2, "sp", tmp_path)
+    with open(tmp_path / "out.pkl", "rb") as f:
+        out = pickle.load(f)
+    assert out["ring_attention"] <= 2e-4
+    assert out["ulysses_attention"] <= 2e-4
+    assert "divisible by the 'sp' axis size (2)" in out["refusal"]
 
 
 # -- the ranks ----------------------------------------------------------------
@@ -430,7 +449,7 @@ def worker_steps(d):
     dist.barrier()
     equal, norm_rel = _clip_check(
         mesh, convert.params_from_numpy(spec["params"], device="cpu"))
-    pp_refused = _pp_refusal(spec) if dist.size == 2 else None
+    pp_matches = _pp_parity(spec) if dist.size == 2 else None
     multislice = None
     if dist.size == 4:
         multislice = tmesh.make_multislice_mesh(
@@ -440,10 +459,48 @@ def worker_steps(d):
         with open(os.path.join(d, "out.pkl"), "wb") as f:
             pickle.dump({"metrics": metrics, "params": full,
                          "allgather": gathered, "clip_equal": equal,
-                         "norm_rel": norm_rel, "pp_refused": pp_refused,
+                         "norm_rel": norm_rel, "pp_matches": pp_matches,
                          "multislice": multislice, "apply_err": apply_err,
                          "flash_refuses": _flash_refuses_dtensors(mesh)},
                         f)
+    launch.shutdown()
+
+
+def worker_sp(d):
+    """Ring and Ulysses at sp 2 against ``mha``: the largest difference
+    over each function's output and gradients."""
+    from determined_clone_tpu_torch.ops import attention as tatt
+
+    torch.set_num_threads(1)
+    dist = launch.init_from_env("cpu")
+    mesh = tmesh.make_mesh(tmesh.MeshSpec(dp=1, sp=2))
+    gen = torch.Generator().manual_seed(0)
+    qkv = [torch.randn(2, 64, 4, 16, generator=gen) for _ in range(3)]
+    whole = [t.clone().requires_grad_(True) for t in qkv]
+    ref = tatt.mha(*whole, causal=True)
+    ref_g = torch.autograd.grad((ref ** 2).sum(), whole)
+    sl = slice(dist.rank * 32, (dist.rank + 1) * 32)
+    out = {}
+    for fn in (tatt.ring_attention, tatt.ulysses_attention):
+        mine = [t[:, sl].clone().requires_grad_(True) for t in qkv]
+        y = fn(*mine, axis_name="sp", mesh=mesh)
+        g = torch.autograd.grad((y ** 2).sum(), mine)
+        out[fn.__name__] = max(
+            [float((y - ref[:, sl]).abs().max())]
+            + [float((a - b[:, sl]).abs().max()) for a, b in zip(g, ref_g)])
+    three = torch.zeros(1, 4, 3, 8)
+    try:
+        tatt.ulysses_attention(three, three, three, axis_name="sp",
+                               mesh=mesh)
+    except ValueError as e:
+        out["refusal"] = str(e)
+    worst = [None] * dist.size
+    torch.distributed.all_gather_object(worst, out)
+    if dist.is_chief:
+        merged = {k: max(w[k] for w in worst) if k != "refusal" else
+                  out[k] for k in out}
+        with open(os.path.join(d, "out.pkl"), "wb") as f:
+            pickle.dump(merged, f)
     launch.shutdown()
 
 
@@ -482,10 +539,18 @@ def _alive(pid):
 def test_launcher_reaps_every_rank(tmp_path, fate):
     """A rank that exits non-zero makes the launcher kill the others and
     exit with its code; ranks past ``--timeout`` are all killed (124)."""
+    # rank 1 dies only once rank 0 has written its pid (within 20 s), so
+    # the launcher has both ranks' pids to check
     script = ("import os, sys, time; r = int(os.environ['RANK']); "
-              f"open(os.path.join({str(tmp_path)!r}, f'pid{{r}}'), 'w')"
+              f"d = {str(tmp_path)!r}; "
+              "open(os.path.join(d, f'pid{r}.tmp'), 'w')"
               ".write(str(os.getpid())); "
-              + ("sys.exit(3) if r == 1 else time.sleep(120)"
+              "os.replace(os.path.join(d, f'pid{r}.tmp'), "
+              "os.path.join(d, f'pid{r}')); "
+              + ("t = time.monotonic() + 20\n"
+                 "while r == 1 and not os.path.exists(os.path.join(d, 'pid0'))"
+                 " and time.monotonic() < t: time.sleep(0.01)\n"
+                 "sys.exit(3) if r == 1 else time.sleep(120)"
                  if fate == "dies" else "time.sleep(120)"))
     t0 = time.monotonic()
     code = launch.spawn([sys.executable, "-c", script], 2, device="cpu",
@@ -502,7 +567,7 @@ def test_launcher_reaps_every_rank(tmp_path, fate):
         launch.spawn(["true"], 1, device="tpu")
 
 
-WORKERS = {"steps": worker_steps}
+WORKERS = {"steps": worker_steps, "sp": worker_sp}
 
 if __name__ == "__main__":
     WORKERS[sys.argv[1]](sys.argv[2])
