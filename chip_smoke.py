@@ -194,7 +194,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    equal to the same trial's without a mesh, bit for bit (both with
    cuDNN's deterministic algorithms); (d) BERT-base
    ``classify`` (bf16, batch 32, seq 128) under ``BERT_SHARDING_RULES``
-   on the one-rank mesh equal to the unmeshed forward bit for bit.
+   on the one-rank mesh equal to the unmeshed forward bit for bit;
+13. the telemetry slice: phase 7's trial with an ``observability`` block
+   (goodput journal, flight recorder, Chrome trace), its first leg (20
+   batches) and a leg restored from its checkpoint at 20 to 40: (a) the
+   training and validation reports equal phase 7's bit for bit; (b)
+   ``train_dispatch`` spans equal the dispatches, one marked
+   ``compiled``; ``host_sync`` spans equal the chunks; ``validate``,
+   ``checkpoint_save`` (and in the restored leg ``checkpoint_restore``,
+   ``restore_replay``) present; each leg's Chrome trace valid; (c) each
+   leg's goodput conserved with productive and compile time booked, and
+   the journal's two legs merged and conserved; (d) ``mfu`` equal to
+   ``flops_per_sec / mfu_peak_flops``, the peak labelled ``gpu:h100``,
+   printed beside ``mfu_measured`` and ``mfu_divergence_total``; (e) the
+   memory gauges of ``gpu:0`` read from ``torch.cuda``, the limit equal
+   to ``mem_get_info``'s total, ``device_memory_peak_bytes`` between
+   ``memory_allocated()`` and ``max_memory_allocated()`` at the last
+   boundary; (f) the flash launches ``2 * n_layers`` per step and
+   ``n_layers`` per eval batch; (g) samples/s printed beside phase 7's
+   (the per-step sync's cost; no bound); (h) the scaling bench at one
+   rank (``parallel/scaling_bench.py``, in a one-rank NCCL world) gives
+   an artifact that ``validate_multichip`` accepts.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
@@ -203,7 +223,8 @@ attends with plain ``mha``, as in the JAX package); ``train_launches``
 is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
 two legs; phases 8, 9 and 10 launch none (``serving_launches``,
 ``fleet_launches``); ``parallel_launches`` is phase 11's, (b) to (d);
-``pipeline_launches`` is phase 12's (b).
+``pipeline_launches`` is phase 12's (b) and ``telemetry_launches``
+phase 13's two legs.
 The last
 three lines are the kernels' JSON line, the card's name and power limit,
 and the result; the line before them gives the whole script's wall
@@ -988,13 +1009,26 @@ GPT_FSDP_HPARAMS = {"global_batch_size": 8, "lr": 3.0e-4, "weight_decay": 0.1,
 
 class _BatchTimings:
     """The profiler hook the trainer calls at each chunk boundary
-    (``record_batch_timing``, as the JAX package's ProfilerAgent)."""
+    (``record_batch_timing``, as the JAX package's ProfilerAgent). With
+    a telemetry ``registry`` it also reads, at that boundary, the card's
+    allocated and peak allocated bytes beside the registry's
+    ``device_memory_peak_bytes``."""
 
-    def __init__(self) -> None:
+    def __init__(self, registry=None) -> None:
         self.rows = []
+        self.registry = registry
 
     def record_batch_timing(self, batches, **timing) -> None:
-        self.rows.append({"batches": batches, **timing})
+        row = {"batches": batches, **timing}
+        if self.registry is not None:
+            import torch
+
+            row.update(
+                memory_allocated=torch.cuda.memory_allocated(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                device_memory_peak_bytes=self.registry.gauge(
+                    "device_memory_peak_bytes").value)
+        self.rows.append(row)
 
 
 def _trial_classes():
@@ -1051,7 +1085,9 @@ def fit_trial(storage, max_batches, *, latest=None, extra=None) -> dict:
         "resources": {"slots_per_trial": 1},
         **(extra or {})})
     with core.init(config=cfg, trial_id=1) as ctx:
-        timings = ctx.profiler = _BatchTimings()
+        tel = ctx.telemetry
+        timings = ctx.profiler = _BatchTimings(
+            tel.registry if tel is not None else None)
         trial = trial_cls(TrialContext(config=cfg, hparams=GPT_FSDP_HPARAMS,
                                        core=ctx))
         trainer = trainer_cls(trial)
@@ -1059,7 +1095,9 @@ def fit_trial(storage, max_batches, *, latest=None, extra=None) -> dict:
         result = trainer.fit(latest_checkpoint=latest)
         wall = time.monotonic() - t0
         records = list(ctx.train._backend.records)
+        goodput = tel.goodput.snapshot() if tel is not None else None
     return {"result": result, "wall_s": wall, "trial": trial,
+            "telemetry": tel, "goodput": goodput,
             "state": trainer._final_state, "first_batch": trial.first_batch,
             "save_s": trainer.save_s, "restore_s": trainer.restore_s,
             "timings": timings.rows,
@@ -3763,6 +3801,225 @@ def phase_second_half(train) -> dict:
     return out
 
 
+# phase 13: the telemetry slice
+def _span_counts(tel) -> dict:
+    counts = {}
+    for e in tel.tracer.events():
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def _compiled_dispatches(tel) -> int:
+    return sum(1 for e in tel.tracer.events()
+               if e["name"] == "train_dispatch"
+               and (e.get("args") or {}).get("compiled"))
+
+
+def _gauge_samples(tel, family) -> list:
+    from determined_clone_tpu_torch.telemetry import parse_prometheus_text
+
+    return [(labels, value) for name, labels, value in
+            parse_prometheus_text(tel.registry.dump())["samples"]
+            if name == family]
+
+
+def scaling_bench_one_rank() -> dict:
+    """(h) ``parallel/scaling_bench.py`` at one rank on this card, in
+    this process (a one-rank NCCL world, as phases 11 and 12 join it):
+    the one-rank baseline, then the one-rank run over dp, fsdp and tp
+    (each axis of size 1). Its command line spawns the same two runs as
+    rank processes; four cards run that (``PERF.md``)."""
+    from determined_clone_tpu_torch.exec import launch
+    from determined_clone_tpu_torch.parallel import scaling_bench
+
+    t0 = time.monotonic()
+    dist = launch.init_rank(0, 1, device="cuda")
+    try:
+        baseline = scaling_bench.measure_baseline(device="cuda", dist=dist)
+        artifact = scaling_bench.run_scaling_bench(
+            1, baseline=baseline, device="cuda", dist=dist)
+    finally:
+        launch.shutdown()
+    return {"artifact": artifact, "wall_s": time.monotonic() - t0}
+
+
+def phase_telemetry(trial) -> dict:
+    """Phase 13: phase 7's trial with ``observability`` on, its first leg
+    (20 batches) and a restore leg to 40, with checks (a)-(h) of the
+    module docstring; the flash launches over the two legs are
+    ``telemetry_launches``."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.telemetry import (
+        check_conservation,
+        merge_goodput,
+        validate_chrome_trace,
+    )
+
+    t0 = time.monotonic()
+    hparams = GPT_FSDP_HPARAMS
+    storage = tempfile.mkdtemp(prefix="chip-smoke-telemetry-")
+    goodput_dir = os.path.join(storage, "goodput")
+
+    def extra(leg):
+        # checkpoints at 20 and 40 only (policy "all": no "best" saves at
+        # each validation): the reports do not depend on the checkpoint
+        # schedule, and each 1.48 GB save costs seconds
+        return {"min_validation_period": {"batches": 10},
+                "min_checkpoint_period": {"batches": 20},
+                "checkpoint_policy": "all",
+                "observability": {
+                    "enabled": True, "goodput_dir": goodput_dir,
+                    "flight_dir": os.path.join(storage, f"flight-{leg}"),
+                    "trace_path": os.path.join(storage,
+                                               f"trace-{leg}.json")}}
+
+    try:
+        flash_attention.launches = 0
+        legs = {"leg1": fit_trial(storage, 20, extra=extra("leg1"))}
+        ckpts = core.LocalCheckpointRegistry(
+            os.path.join(storage, "checkpoints.jsonl")).list()
+        legs["leg2"] = fit_trial(storage, 40, extra=extra("leg2"),
+                                 latest=ckpts[-1]["storage_id"])
+        launches = flash_attention.launches
+        traces = {}
+        for leg in legs:
+            with open(os.path.join(storage, f"trace-{leg}.json")) as f:
+                traces[leg] = validate_chrome_trace(json.load(f))
+        merged = merge_goodput(goodput_dir)
+        for leg in legs.values():
+            leg["state"] = None
+        bench = scaling_bench_one_rank()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+    from determined_clone_tpu_torch.telemetry.mesh import validate_multichip
+
+    _, mem_total = torch.cuda.mem_get_info()
+    checks, lines = {}, []
+    for name, leg in legs.items():
+        tel, rows = leg["telemetry"], leg["timings"]
+        spans = _span_counts(tel)
+        want = {f"{g}@{s}": m for g, key in (("training", "training"),
+                                             ("validation", "validation"))
+                for s, m in trial[name][key]}
+        got = {f"{g}@{s}": m for g, key in (("training", "training"),
+                                            ("validation", "validation"))
+               for s, m in leg[key]}
+        same = set(got) == set(want) and all(
+            got[k]["loss"] == want[k]["loss"]
+            and got[k].get("grad_norm") == want[k].get("grad_norm")
+            for k in want)
+        checks[f"(a) {name}: reports equal phase 7's bit for bit"] = same
+        dispatches = leg["result"]["batches_trained"] - (
+            0 if name == "leg1" else 20)
+        chunks = len(leg["training"])
+        checks[f"(b) {name}: {dispatches} train_dispatch spans, one "
+               f"compiled"] = (spans.get("train_dispatch") == dispatches
+                               and _compiled_dispatches(tel) == 1)
+        checks[f"(b) {name}: {chunks} host_sync spans"] = (
+            spans.get("host_sync") == chunks)
+        need = ["validate", "checkpoint_save"] + (
+            ["checkpoint_restore", "restore_replay"] if name == "leg2"
+            else [])
+        checks[f"(b) {name}: {', '.join(need)} spans present"] = all(
+            spans.get(n, 0) > 0 for n in need)
+        checks[f"(b) {name}: Chrome trace valid"] = traces[name] == []
+        snap = leg["goodput"]
+        cats = snap["categories"]
+        checks[f"(c) {name}: goodput conserved, productive > 0, compile "
+               f"booked"] = (check_conservation(snap)["ok"]
+                             and cats["productive"] > 0
+                             and cats["compile"] > 0)
+        reg = tel.registry
+        fps = reg.gauge("flops_per_sec").value
+        peak = reg.gauge("mfu_peak_flops").value
+        mfu = reg.gauge("mfu").value
+        (info,) = _gauge_samples(tel, "mfu_peak_info")
+        checks[f"(d) {name}: mfu = flops_per_sec / mfu_peak_flops, the "
+               f"peak labelled gpu:h100"] = (
+            math.isclose(mfu, fps / peak, rel_tol=1e-12)
+            and info[0]["assumed"] == "gpu:h100")
+        in_use = _gauge_samples(tel, "device_memory_bytes_in_use")
+        limit = _gauge_samples(tel, "device_memory_bytes_limit")
+        last_row = rows[-1]
+        checks[f"(e) {name}: memory gauges of gpu:0 from torch.cuda, "
+               f"limit = mem_get_info's total, peak within "
+               f"[allocated, max allocated]"] = (
+            [lb["device"] for lb, _ in in_use] == ["gpu:0"]
+            and [lb["source"] for lb, _ in in_use] == ["memory_stats"]
+            and [v for _, v in limit] == [float(mem_total)]
+            and last_row["memory_allocated"]
+            <= last_row["device_memory_peak_bytes"]
+            <= last_row["max_memory_allocated"])
+        sps = [m["samples_per_second"] for _, m in leg["training"]]
+        base = [m["samples_per_second"] for _, m in trial[name]["training"]]
+        divergence = reg.counter("mfu_divergence_total").value
+        lines.append(
+            f"[telemetry] {name}: samples/s per chunk "
+            f"{', '.join(f'{v:.3f}' for v in sps)} (phase 7: "
+            f"{', '.join(f'{v:.3f}' for v in base)}); mfu {mfu:.4g} "
+            f"(analytic, {info[0]['flops_source']}), mfu_measured "
+            f"{reg.gauge('mfu_measured').value:.4f}, divergence chunks "
+            f"{divergence:.0f}; peak {peak:.4g} ({info[0]['assumed']}); "
+            f"goodput " + ", ".join(f"{k} {v:.3f}" for k, v in cats.items()
+                                    if v) + f" of {snap['wall_s']:.3f} s; "
+            f"compiles {tel.compile_count()}; memory peak "
+            f"{last_row['device_memory_peak_bytes']:.0f} B (allocated "
+            f"{last_row['memory_allocated']} B, max "
+            f"{last_row['max_memory_allocated']} B, limit {mem_total} B); "
+            f"spans {spans}")
+    acct = merged.get(1, {})
+    checks["(c) merged journal of both legs conserved"] = bool(
+        acct.get("conservation_ok")) and acct.get("legs") == 2 and (
+        abs(sum(acct["categories"].values()) - acct["wall_s"])
+        <= 0.01 * acct["wall_s"])
+    n_eval = sum(len(leg["validation"]) for leg in legs.values())
+    per_step = 2 * hparams["n_layers"]
+    want_launches = per_step * 40 + hparams["n_layers"] * n_eval
+    checks[f"(f) flash launches {want_launches} ({per_step} x 40 steps + "
+           f"{hparams['n_layers']} x {n_eval} eval batches)"] = (
+        launches == want_launches)
+    art = bench["artifact"]
+    checks["(h) the scaling bench's one-rank artifact passes "
+           "validate_multichip"] = (validate_multichip(art) == []
+                                    and art["platform"] == "gpu")
+    for line in lines:
+        log(line)
+    log(f"[telemetry] merged goodput over both legs: "
+        f"{json.dumps(acct, default=str)}")
+    for axis, run in sorted(art["meshes"].items()):
+        log(f"[telemetry] (h) scaling bench {axis}: "
+            f"{run['throughput_samples_per_sec']:.2f} samples/s, efficiency "
+            f"{run['scaling_efficiency']:.4f}, mfu measured "
+            f"{run['mfu_measured']}, collectives "
+            f"{run['collectives']['total_ops']}, compile "
+            f"{run['compile_seconds']:.3f} s; bench wall "
+            f"{bench['wall_s']:.1f} s")
+    for name, ok in checks.items():
+        log(f"[telemetry] check {'ok' if ok else 'FAILED'}: {name}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 13 checks failed: {failed}")
+    out = {"launches": launches, "checks": checks, "scaling_bench": art,
+           "merged_goodput": acct, "wall_s": time.monotonic() - t0,
+           "legs": {name: {"goodput": leg["goodput"],
+                           "spans": _span_counts(leg["telemetry"]),
+                           "training": leg["training"],
+                           "timings": leg["timings"],
+                           "registry": leg["telemetry"].registry.snapshot()}
+                    for name, leg in legs.items()}}
+    log(f"[telemetry] phase 13 wall {out['wall_s']:.1f} s; flash launches "
+        f"{launches}")
+    return out
+
+
 class _Tok:
     """A /v1/generate reply as check_greedy reads a result."""
 
@@ -3825,6 +4082,7 @@ def main(argv) -> int:
     del params
     report["parallel"] = phase_parallel(report["trial"]["legs"]["leg1"])
     report["second_half"] = phase_second_half(report["train"])
+    report["telemetry"] = phase_telemetry(report["trial"]["legs"])
 
     smi = card_line()
     # the main path's case (bf16 at the GPT width) and, beside it, the
@@ -3842,6 +4100,7 @@ def main(argv) -> int:
         "fleet_launches": report["fleet"]["flash_launches"],
         "parallel_launches": report["parallel"]["launches"],
         "pipeline_launches": report["second_half"]["launches"],
+        "telemetry_launches": report["telemetry"]["launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

@@ -5,6 +5,7 @@ from determined_clone_tpu_torch.config.experiment import (
     CheckpointStorageConfig,
     ConfigError,
     ExperimentConfig,
+    ObservabilityConfig,
     OptimizationsConfig,
     ResourcesConfig,
     SearcherConfig,
@@ -18,6 +19,7 @@ __all__ = [
     "ConfigError",
     "ExperimentConfig",
     "Length",
+    "ObservabilityConfig",
     "OptimizationsConfig",
     "ResourcesConfig",
     "SearcherConfig",

@@ -15,10 +15,16 @@ accepted and not parsed. Of the legacy (v0) spellings the JAX package
 shims, only the horovod-era ``optimizations`` keys are accepted (and
 ignored, as the shim drops them).
 
+The ``observability:`` block is :class:`ObservabilityConfig`, the JAX
+package's, with its checks and messages (its ``rules`` are validated as
+the JAX ``AlertRule`` validates them; ``timeseries`` and ``rules`` are
+read by the master's time-series store, in the JAX package too, and by
+nothing in a trial).
+
 A block whose behaviour the port does not have yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item instead of
-training without it: ``observability.enabled: true`` and a cloud or
-content-addressed ``checkpoint_storage`` type. ``resources.slots_per_trial``
+training without it: a cloud or content-addressed ``checkpoint_storage``
+type. ``resources.slots_per_trial``
 above 1 is a trial over that many ranks (``exec/launch.py``).
 """
 from __future__ import annotations
@@ -49,12 +55,6 @@ _TOP_LEVEL = {
 }
 _RESOURCES_KEYS = {"slots_per_trial", "resource_pool", "priority",
                    "topology", "max_slots"}
-_OBSERVABILITY_KEYS = {
-    "enabled", "max_events", "ship_spans", "ship_metrics", "trace_path",
-    "flight_dir", "flight_segment_events", "flight_segments", "goodput_dir",
-    "anomaly_window", "anomaly_threshold", "anomaly_min_samples",
-    "timeseries", "stale_after_s", "rules", "stock_slo_rules",
-}
 _SERVING_KEYS = {"max_batch", "max_prefill_len", "kv_block_size",
                  "kv_blocks", "max_queue_depth", "default_max_new_tokens",
                  "host", "port", "prefix_cache", "chunk_prefill_len",
@@ -67,8 +67,6 @@ _FAULT_ACTIONS = ("error", "delay", "truncate", "exit")
 _FAULT_EXCS = ("fault", "io", "conn")
 _LENGTH_UNITS = {"batches", "records", "epochs"}
 
-_ROADMAP_TELEMETRY = ("ROADMAP.md, Queue 1: the telemetry branch of the "
-                      "training loop and DeviceMemoryMonitor")
 _ROADMAP_STORAGE = "ROADMAP.md, Queue 1: the cloud storage managers"
 
 
@@ -368,13 +366,289 @@ def _serving(raw: Any) -> ServingConfig:
     return ServingConfig.from_dict(raw)
 
 
-def _check_observability(raw: Any) -> None:
-    raw = _mapping(raw, "observability")
-    _known(raw, _OBSERVABILITY_KEYS, "observability")
-    if raw.get("enabled", False):
-        raise NotImplementedError(
-            f"observability.enabled: the port's training loop has no "
-            f"telemetry yet ({_ROADMAP_TELEMETRY})")
+# the alert-rule vocabulary of the JAX package's telemetry/rules.py
+_RULE_KINDS = ("threshold", "rate_of_change", "burn_rate", "absence")
+_RULE_SEVERITIES = ("page", "ticket")
+_RULE_OPS = ("gt", "ge", "lt", "le")
+_RULE_REDUCES = ("avg", "max", "min", "last")
+_RULE_KEYS = {"name", "kind", "series", "labels", "window_s", "reduce",
+              "op", "value", "for_s", "severity", "stale_s", "windows",
+              "threshold", "objective", "bad_series", "total_series"}
+
+
+def _check_alert_rule(raw: Any) -> None:
+    """Raise ``ValueError`` or ``TypeError`` where the JAX package's
+    ``AlertRule.from_dict`` does, with its messages."""
+    if not isinstance(raw, dict):
+        raise ValueError(f"alert rule must be a mapping, got {raw!r}")
+    unknown = set(raw) - _RULE_KEYS
+    if unknown:
+        raise ValueError(
+            f"alert rule {raw.get('name', '?')!r}: unknown keys "
+            f"{sorted(unknown)}")
+    if not raw.get("name") or not raw.get("kind"):
+        raise ValueError(f"alert rule needs name + kind, got {raw!r}")
+    name, kind = str(raw["name"]), str(raw["kind"])
+    series, value = raw.get("series"), raw.get("value")
+    stale_s, windows = raw.get("stale_s"), raw.get("windows")
+    threshold, objective = raw.get("threshold"), raw.get("objective")
+    severity = raw.get("severity", "ticket")
+    op, reduce = raw.get("op", "gt"), raw.get("reduce", "avg")
+    if kind not in _RULE_KINDS:
+        raise ValueError(f"rule {name!r}: unknown kind {kind!r} "
+                         f"(one of {_RULE_KINDS})")
+    if severity not in _RULE_SEVERITIES:
+        raise ValueError(f"rule {name!r}: severity must be one of "
+                         f"{_RULE_SEVERITIES}, got {severity!r}")
+    if op not in _RULE_OPS:
+        raise ValueError(f"rule {name!r}: op must be one of "
+                         f"{sorted(_RULE_OPS)}, got {op!r}")
+    if reduce not in _RULE_REDUCES:
+        raise ValueError(f"rule {name!r}: reduce must be one of "
+                         f"{_RULE_REDUCES}, got {reduce!r}")
+    if kind in ("threshold", "rate_of_change"):
+        if not series or value is None:
+            raise ValueError(
+                f"rule {name!r}: kind {kind!r} needs series + value")
+    elif kind == "absence":
+        if not series or stale_s is None or stale_s <= 0:
+            raise ValueError(
+                f"rule {name!r}: absence needs series + stale_s > 0")
+    else:  # burn_rate
+        if threshold is None or not windows or len(windows) < 1:
+            raise ValueError(
+                f"rule {name!r}: burn_rate needs windows + threshold")
+        if raw.get("bad_series"):
+            if not raw.get("total_series") or objective is None:
+                raise ValueError(
+                    f"rule {name!r}: counter-pair burn_rate needs "
+                    f"bad_series + total_series + objective")
+            if not 0.0 < objective < 1.0:
+                raise ValueError(
+                    f"rule {name!r}: objective must be in (0, 1), "
+                    f"got {objective}")
+        elif not series:
+            raise ValueError(
+                f"rule {name!r}: burn_rate needs either series (a "
+                f"burn gauge) or bad_series/total_series counters")
+    # the conversions the JAX rule's constructor makes
+    dict(raw.get("labels") or {})
+    float(raw.get("window_s", 300.0))
+    float(raw.get("for_s", 0.0))
+    if stale_s is not None:
+        float(stale_s)
+    list(windows or [])
+
+
+@dataclasses.dataclass
+class ObservabilityConfig:
+    """Trial-side telemetry (``telemetry_from_config``): spans, the
+    metrics registry, the Chrome trace, the flight recorder, the goodput
+    journal and the step-time anomaly detector. Disabled by default, so
+    the trainer's hot loop runs unwrapped."""
+
+    enabled: bool = False
+    max_events: int = 200_000      # span-record cap (head kept, tail dropped)
+    ship_spans: bool = False       # ship span records to the profiler
+    ship_metrics: bool = True      # ship registry snapshots to it
+    trace_path: Optional[str] = None  # trace.json destination; None = default
+    # flight recorder (crash black box, telemetry/flight.py); None = off
+    flight_dir: Optional[str] = None
+    flight_segment_events: int = 256  # records per segment file
+    flight_segments: int = 8          # ring size (oldest deleted)
+    # goodput ledger journal (telemetry/goodput.py); None = ledger in
+    # memory only (still published as goodput_* gauges)
+    goodput_dir: Optional[str] = None
+    # step-time anomaly detector (rolling median/MAD over train_dispatch)
+    anomaly_window: int = 64       # rolling baseline length
+    anomaly_threshold: float = 5.0  # MAD multiples above median to fire
+    anomaly_min_samples: int = 16  # warmup before the detector arms
+    # the master's time-series store; None = not enabled
+    timeseries: Optional[Dict[str, Any]] = None
+    stale_after_s: float = 60.0
+    # declarative alert rules for the master's rule engine
+    rules: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    stock_slo_rules: bool = False
+
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "ObservabilityConfig":
+        if not isinstance(raw, dict):
+            raise ConfigError(f"observability must be a mapping, got {raw!r}")
+        cfg = ObservabilityConfig(
+            enabled=bool(raw.get("enabled", False)),
+            max_events=int(raw.get("max_events", 200_000)),
+            ship_spans=bool(raw.get("ship_spans", False)),
+            ship_metrics=bool(raw.get("ship_metrics", True)),
+            trace_path=raw.get("trace_path"),
+            flight_dir=raw.get("flight_dir"),
+            flight_segment_events=int(raw.get("flight_segment_events", 256)),
+            flight_segments=int(raw.get("flight_segments", 8)),
+            goodput_dir=raw.get("goodput_dir"),
+            anomaly_window=int(raw.get("anomaly_window", 64)),
+            anomaly_threshold=float(raw.get("anomaly_threshold", 5.0)),
+            anomaly_min_samples=int(raw.get("anomaly_min_samples", 16)),
+            timeseries=raw.get("timeseries"),
+            stale_after_s=float(raw.get("stale_after_s", 60.0)),
+            rules=list(raw.get("rules") or []),
+            stock_slo_rules=bool(raw.get("stock_slo_rules", False)),
+        )
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        if self.max_events < 1:
+            raise ConfigError(
+                f"observability.max_events must be >= 1, "
+                f"got {self.max_events}")
+        if self.flight_segment_events < 1:
+            raise ConfigError(
+                f"observability.flight_segment_events must be >= 1, "
+                f"got {self.flight_segment_events}")
+        if self.flight_segments < 2:
+            raise ConfigError(
+                f"observability.flight_segments must be >= 2, "
+                f"got {self.flight_segments}")
+        if self.anomaly_window < 4:
+            raise ConfigError(
+                f"observability.anomaly_window must be >= 4, "
+                f"got {self.anomaly_window}")
+        if self.anomaly_threshold <= 0:
+            raise ConfigError(
+                f"observability.anomaly_threshold must be > 0, "
+                f"got {self.anomaly_threshold}")
+        if self.anomaly_min_samples < 2:
+            raise ConfigError(
+                f"observability.anomaly_min_samples must be >= 2, "
+                f"got {self.anomaly_min_samples}")
+        if self.timeseries is not None and not isinstance(self.timeseries,
+                                                          dict):
+            raise ConfigError(
+                f"observability.timeseries must be a mapping, "
+                f"got {self.timeseries!r}")
+        if self.stale_after_s <= 0:
+            raise ConfigError(
+                f"observability.stale_after_s must be > 0, "
+                f"got {self.stale_after_s}")
+        for i, rule in enumerate(self.rules):
+            try:
+                _check_alert_rule(rule)
+            except (TypeError, ValueError) as e:
+                raise ConfigError(
+                    f"observability.rules[{i}]: {e}") from e
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: v for k, v in dataclasses.asdict(self).items()
+                if v is not None}
+
+
+# the JAX package's experiment schema for the block (config/schema.py),
+# with its quirks: a rule's ``objective`` is typed a string there
+_NUM, _INT, _STR, _BOOL = ({"type": t} for t in (
+    "number", "integer", "string", "boolean"))
+_OBSERVABILITY_SCHEMA = {
+    "type": "object", "open": False,
+    "properties": {
+        "enabled": _BOOL, "max_events": _INT, "ship_spans": _BOOL,
+        "ship_metrics": _BOOL, "trace_path": _STR, "flight_dir": _STR,
+        "flight_segment_events": _INT, "flight_segments": _INT,
+        "goodput_dir": _STR, "anomaly_window": _INT,
+        "anomaly_threshold": _NUM, "anomaly_min_samples": _INT,
+        "timeseries": {
+            "type": "object", "open": False,
+            "properties": {
+                "enabled": _BOOL, "scrape_period_s": _NUM,
+                "capacity_per_series": _INT, "coarse_step_s": _NUM,
+                "coarse_capacity": _INT, "memory_budget_mb": _NUM,
+                "max_series": _INT, "persist_dir": _STR,
+                "segment_scrapes": _INT, "max_segments": _INT,
+            },
+        },
+        "stale_after_s": _NUM,
+        "rules": {
+            "type": "array",
+            "items": {
+                "type": "object", "open": False,
+                "properties": {
+                    "name": _STR,
+                    "kind": {"type": "string", "enum": list(_RULE_KINDS)},
+                    "series": _STR,
+                    "labels": {"type": "object", "open": True},
+                    "window_s": _NUM, "reduce": _STR,
+                    "op": {"type": "string", "enum": list(_RULE_OPS)},
+                    "value": _NUM, "for_s": _NUM,
+                    "severity": {"type": "string",
+                                 "enum": list(_RULE_SEVERITIES)},
+                    "stale_s": _NUM,
+                    "windows": {"type": "array",
+                                "items": {"anyOf": [_STR, _NUM]}},
+                    "threshold": _NUM, "objective": _STR,
+                    "bad_series": _STR, "total_series": _STR,
+                },
+                "required": ["name", "kind"],
+            },
+        },
+        "stock_slo_rules": _BOOL,
+    },
+}
+
+
+def _type_ok(schema_type: str, value: Any) -> bool:
+    if schema_type == "integer":
+        return isinstance(value, int) and not isinstance(value, bool)
+    if schema_type == "number":
+        return (isinstance(value, (int, float))
+                and not isinstance(value, bool))
+    return isinstance(value, {"string": str, "boolean": bool,
+                              "array": list, "object": dict}[schema_type])
+
+
+def _schema_errors(value: Any, schema: Dict[str, Any], path: str
+                   ) -> List[str]:
+    """The JAX schema validator's errors for ``value`` (the subset of its
+    forms the block uses: types, enums, objects, arrays, anyOf)."""
+    if "anyOf" in schema:
+        attempts = [_schema_errors(value, sub, path)
+                    for sub in schema["anyOf"]]
+        if any(not a for a in attempts):
+            return []
+        return [f"{path}: no alternative matched: " +
+                "; ".join(a[0] for a in attempts if a)]
+    stype = schema["type"]
+    if not _type_ok(stype, value):
+        return [f"{path}: expected {stype}, got {type(value).__name__}"]
+    errors: List[str] = []
+    if "enum" in schema and value not in schema["enum"]:
+        errors.append(f"{path}: expected one of {schema['enum']}, "
+                      f"got {value!r}")
+    if stype == "object":
+        props = schema.get("properties", {})
+        for req in schema.get("required", []):
+            if req not in value:
+                errors.append(f"{path}.{req}: required field missing")
+        for key, sub in value.items():
+            if key in props:
+                errors.extend(_schema_errors(sub, props[key],
+                                             f"{path}.{key}"))
+            elif not schema.get("open", False):
+                errors.append(f"{path}.{key}: unknown field "
+                              f"(known: {sorted(props)})")
+    elif stype == "array" and "items" in schema:
+        for i, item in enumerate(value):
+            errors.extend(_schema_errors(item, schema["items"],
+                                         f"{path}[{i}]"))
+    return errors
+
+
+def _observability(raw: Any) -> ObservabilityConfig:
+    """The ``observability:`` block checked against the JAX package's
+    schema (types, enums, unknown keys) before
+    :meth:`ObservabilityConfig.from_dict`, as the JAX config checks it."""
+    errors = _schema_errors(raw, _OBSERVABILITY_SCHEMA,
+                            "<config>.observability")
+    if errors:
+        raise ConfigError("invalid experiment config:\n  "
+                          + "\n  ".join(errors))
+    return ObservabilityConfig.from_dict(raw)
 
 
 @dataclasses.dataclass
@@ -389,6 +663,8 @@ class ExperimentConfig:
         default_factory=OptimizationsConfig)
     faults: Optional[FaultsConfig] = None
     serving: Optional[ServingConfig] = None
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig)
     checkpoint_policy: str = "best"     # best | all | none
     min_validation_period: Optional[Length] = None
     min_checkpoint_period: Optional[Length] = None
@@ -402,8 +678,6 @@ class ExperimentConfig:
             raise ConfigError(f"experiment config must be a mapping, got "
                               f"{type(raw).__name__}")
         _known(raw, _TOP_LEVEL, "<config>")
-        if "observability" in raw:
-            _check_observability(raw["observability"])
         repro = _mapping(raw.get("reproducibility") or {}, "reproducibility")
         _known(repro, {"experiment_seed"}, "reproducibility")
         hparams = raw.get("hyperparameters") or {}
@@ -420,6 +694,9 @@ class ExperimentConfig:
                     if raw.get("faults") else None),
             serving=(_serving(raw["serving"]) if raw.get("serving")
                      else None),
+            observability=(_observability(raw["observability"])
+                           if "observability" in raw
+                           else ObservabilityConfig()),
             checkpoint_policy=raw.get("checkpoint_policy", "best"),
             min_validation_period=(
                 _length(raw["min_validation_period"], "min_validation_period")

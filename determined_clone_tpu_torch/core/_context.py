@@ -8,9 +8,15 @@ rank unless ``distributed`` is given (``exec/launch.py``'s
 metrics in memory (or a JSONL file), preemption from a flag file named by
 ``DCT_PREEMPT_FILE``, and one searcher operation to
 ``searcher.max_length``. A config ``faults:`` block, or else
-``DCT_FAULT_PLAN``, activates a fault plan. ``telemetry``, ``profiler``
-and ``tensorboard`` stay None: the port has no telemetry yet
-(``observability.enabled`` raises in the config), and a caller may set
+``DCT_FAULT_PLAN``, activates a fault plan.
+
+``telemetry`` is built first, as in the JAX package, from the config's
+``observability:`` block (``telemetry.telemetry_from_config``; None when
+it is off): its goodput ledger takes the trial id (the journal's file is
+named by it), and its registry goes to the fault plan and the preemption
+watcher. On exit the Chrome trace is written when ``trace_path`` is set
+and the telemetry closed (the flight segment and the goodput journal
+flushed). ``profiler`` and ``tensorboard`` stay None; a caller may set
 ``profiler`` to an object with the JAX package's ``record_batch_timing``
 method, which the trainer calls once per chunk.
 """
@@ -48,6 +54,7 @@ from determined_clone_tpu_torch.core._train import (
     TrainContext,
 )
 from determined_clone_tpu_torch.storage import base as storage_base
+from determined_clone_tpu_torch.telemetry import telemetry_from_config
 
 
 class Context:
@@ -93,13 +100,24 @@ def init(
     config = config or ExperimentConfig.from_dict({})
     dist = distributed or DistributedContext.single()
 
+    # telemetry first: the preemption watcher and the fault plan want its
+    # registry (None when observability is off)
+    telemetry = telemetry_from_config(config)
+    registry_arg = telemetry.registry if telemetry is not None else None
+    if (telemetry is not None and telemetry.goodput is not None
+            and trial_id is not None):
+        # the goodput journal file is named by trial id, so identity must
+        # land before the ledger's first durable write (first publish)
+        telemetry.goodput.set_identity(trial_id=trial_id)
+
     # a config `faults:` block wins; otherwise DCT_FAULT_PLAN. Config plans
     # are cached by payload so counters survive restart legs.
     fault_plan = None
     if (config.faults is not None and config.faults.enabled
             and config.faults.rules):
         fault_plan = faults_mod.activate_from_config(
-            {"seed": config.faults.seed, "rules": config.faults.rules})
+            {"seed": config.faults.seed, "rules": config.faults.rules},
+            registry=registry_arg)
     elif faults_mod.active_plan() is None:
         faults_mod.install_from_env()
 
@@ -135,7 +153,7 @@ def init(
     if source is None:
         flag = os.environ.get("DCT_PREEMPT_FILE")
         source = FilePreemptionSource(flag) if flag else NeverPreempt()
-    preempt = PreemptContext(dist, source).start()
+    preempt = PreemptContext(dist, source, registry=registry_arg).start()
 
     if searcher_source is None:
         searcher_source = LocalSearcherSource(config.searcher.max_length)
@@ -143,11 +161,18 @@ def init(
 
     ctx = Context(distributed=dist, train=train, checkpoint=checkpoint,
                   preempt=preempt, searcher=searcher)
+    ctx.telemetry = telemetry
     try:
         yield ctx
     finally:
-        if fault_plan is not None:
-            faults_mod.deactivate(fault_plan)
-        ctx.close()
-        if cleanup_dir is not None:
-            cleanup_dir.cleanup()
+        try:
+            if ctx.telemetry is not None and ctx.telemetry.trace_path:
+                ctx.telemetry.export_chrome_trace()
+        finally:
+            if ctx.telemetry is not None:
+                ctx.telemetry.close()
+            if fault_plan is not None:
+                faults_mod.deactivate(fault_plan)
+            ctx.close()
+            if cleanup_dir is not None:
+                cleanup_dir.cleanup()

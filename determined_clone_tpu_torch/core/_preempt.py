@@ -7,8 +7,8 @@ the whole gang exits together (PreemptMode semantics). On TPU the stakes are
 higher than the reference's chief-only decision: all hosts of a slice must
 agree before tearing down the XLA world, so the chief's decision is
 broadcast over the control plane — then the trainer saves and exits.
-Its poll-failure count is kept on the watcher (the JAX package also feeds a metrics
-registry, which waits for the port's telemetry).
+Poll failures are counted on the watcher and, given a metrics registry,
+in its ``preempt_poll_failures`` counter.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import logging
 import os
 import threading
 import time
-from typing import Optional
+from typing import Any, Optional
 
 from determined_clone_tpu_torch.core._distributed import DistributedContext
 
@@ -57,12 +57,14 @@ class NeverPreempt(PreemptionSource):
 
 
 class _Watcher(threading.Thread):
-    def __init__(self, source: PreemptionSource, interval: float) -> None:
+    def __init__(self, source: PreemptionSource, interval: float,
+                 failure_counter: Any = None) -> None:
         super().__init__(daemon=True, name="preemption-watcher")
         self._source = source
         self._interval = interval
         self._flag = threading.Event()
         self._halt = threading.Event()
+        self._failure_counter = failure_counter
         self._last_warn = float("-inf")
         self.poll_failures = 0
 
@@ -77,6 +79,8 @@ class _Watcher(threading.Thread):
                 # permanently broken source must be visible, so count every
                 # failure and warn at most once per window
                 self.poll_failures += 1
+                if self._failure_counter is not None:
+                    self._failure_counter.inc()
                 now = time.monotonic()
                 if now - self._last_warn >= _WARN_INTERVAL_S:
                     self._last_warn = now
@@ -97,13 +101,17 @@ class PreemptContext:
     def __init__(self, dist: DistributedContext,
                  source: Optional[PreemptionSource] = None, *,
                  mode: PreemptMode = PreemptMode.WORKERS_ASK_CHIEF,
-                 poll_interval: float = 5.0) -> None:
+                 poll_interval: float = 5.0,
+                 registry: Any = None) -> None:
         self._dist = dist
         self._mode = mode
         self._source = source or NeverPreempt()
         self._watcher: Optional[_Watcher] = None
         self._interval = poll_interval
         self._signaled = threading.Event()
+        self._failure_counter = registry.counter(
+            "preempt_poll_failures",
+            "preemption source polls that raised") if registry else None
 
     def start(self) -> "PreemptContext":
         if (self._mode == PreemptMode.WORKERS_ASK_CHIEF
@@ -113,7 +121,8 @@ class PreemptContext:
             self._dist._require_transport()
         watch = self._mode == PreemptMode.CHIEF_ONLY or self._dist.is_chief
         if watch and not isinstance(self._source, NeverPreempt):
-            self._watcher = _Watcher(self._source, self._interval)
+            self._watcher = _Watcher(self._source, self._interval,
+                                     self._failure_counter)
             self._watcher.start()
         return self
 

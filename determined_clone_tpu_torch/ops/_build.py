@@ -128,6 +128,12 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[BuildRecord]:
         return [_records[n] for n in names]
 
 
+def built() -> List[str]:
+    """The kernels built (or found built) in this process, sorted."""
+    with _lock:
+        return sorted(_records)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` with its C functions'
     signatures declared; builds it on first use."""

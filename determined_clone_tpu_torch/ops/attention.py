@@ -170,8 +170,11 @@ class _AllToAll(torch.autograd.Function):
         import torch.distributed as dist
 
         ctx.group = group
+        from determined_clone_tpu_torch.telemetry import collectives
+
         out = torch.empty_like(blocks)
         dist.all_to_all_single(out, blocks.contiguous(), group=group)
+        collectives.note("all-to-all", group, out.nbytes)
         return out
 
     @staticmethod

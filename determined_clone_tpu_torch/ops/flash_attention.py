@@ -210,18 +210,36 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor,
     return B, H, Tq, Tk, D, tuple(strides)
 
 
+def kernel_flops(B: int, H: int, Tq: int, Tk: int, D: int,
+                 causal: bool) -> float:
+    """The FLOPs of one kernel launch: two products (``QKᵀ`` and ``PV``)
+    of ``2·D`` per (query, key) pair it attends — every pair, or with
+    ``causal`` the pairs with key index <= query index."""
+    if causal:
+        n = min(Tq, Tk)
+        pairs = n * (n + 1) // 2 + (Tq - n) * Tk
+    else:
+        pairs = Tq * Tk
+    return 4.0 * B * H * D * pairs
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
     """Launch the kernel built from ``csrc/flash_attn_fwd.cu`` on the
-    current stream and count the launch."""
+    current stream, count the launch, and add its FLOPs to a compile
+    capture in progress (``telemetry/compile.py``): called through
+    ctypes, the kernel is invisible to ``FlopCounterMode``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
     from determined_clone_tpu_torch.ops import _build
+    from determined_clone_tpu_torch.telemetry.compile import add_flops
 
     o = run_kernel(_build.library("flash_attn_fwd"), q, k, v, causal)
     if o.numel():
         flash_attention.launches += 1
+        B, Tq, H, D = q.shape
+        add_flops(kernel_flops(B, H, Tq, k.shape[1], D, causal))
     return o
 
 

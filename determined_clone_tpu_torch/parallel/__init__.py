@@ -1,7 +1,7 @@
 """Parallelism: meshes, partition specs and the GPipe pipeline — the
-port of ``determined_clone_tpu/parallel`` but for ``scaling_bench``
-(``ROADMAP.md``). ``spmd`` holds the per-rank collectives the JAX package
-leaves to XLA's partitioner.
+port of ``determined_clone_tpu/parallel``. ``spmd`` holds the per-rank
+collectives the JAX package leaves to XLA's partitioner;
+``scaling_bench`` (run as a module) measures scaling over ranks.
 """
 from determined_clone_tpu_torch.parallel.mesh import (
     AXES,

@@ -31,6 +31,9 @@ Megatron style:
 
 Collectives over an axis of size 1 are skipped, so a one-rank mesh runs
 the one-card program. Reductions run in fp32 whatever the tensor's dtype.
+Every collective goes through :func:`_all_gather`, :func:`_all_reduce`
+or :func:`_p2p`, which report it to ``telemetry/collectives.py`` (a
+no-op unless a step's first call is being recorded).
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from determined_clone_tpu_torch.core._serialization import (
     tree_map_with_path,
     tree_paths_and_leaves,
 )
+from determined_clone_tpu_torch.telemetry import collectives
 
 BATCH_AXES = ("dp", "fsdp")
 # the axes that split the data: the ranks along them compute other rows
@@ -86,6 +90,7 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     wire = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
     parts = [torch.empty_like(wire) for _ in range(n)]
     dist.all_gather(parts, wire, group=group)
+    collectives.note("all-gather", group, n * wire.nbytes)
     if x.dtype == torch.bfloat16:
         parts = [p.view(torch.bfloat16) for p in parts]
     return torch.cat(parts, dim)
@@ -96,6 +101,7 @@ def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     # channels-last weight gradient is one)
     out = x.detach().float().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=group)
+    collectives.note("all-reduce", group, out.nbytes)
     return out.to(x.dtype)
 
 
@@ -179,6 +185,7 @@ def _p2p(sends: Sequence[torch.Tensor], dst: Optional[int],
         probe = torch.zeros(1, device=sends[0].device if sends
                             else like[0].device)
         dist.all_reduce(probe, group=group)
+        collectives.note("all-reduce", group, probe.nbytes)
         _P2P_OPENED[id(group)] = group
     ops, out = [], []
     if dst is not None:
@@ -192,6 +199,11 @@ def _p2p(sends: Sequence[torch.Tensor], dst: Optional[int],
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        # a permute's result is each participant's payload: the tensors
+        # this rank moves (sent, else received)
+        collectives.note("collective-permute", group,
+                         sum(t.nbytes for t in (sends if dst is not None
+                                                else out)))
     return out
 
 

@@ -18,21 +18,36 @@ width ``f``, sequence length ``s``, vocab ``V``:
   plus router:                            ``L * 2 * d * E``
 - logits:                                 ``2 * d * V``
 
+The ``6 * n_params`` approximation is :func:`dense_train_flops_per_token`,
+for trials without an analytic count.
+
 The peak is the H100 SXM's dense bf16 tensor-core rate from NVIDIA's
-data sheet, which assumes the card's full 700 W power limit; the JAX
-package's TPU peaks have no place here.
+data sheet, which assumes the card's full 700 W power limit, and the
+interconnect its NVLink 4 rate per direction
+(:func:`peak_flops_estimate`, :func:`interconnect_bandwidth_estimate`,
+each with a provenance label); the JAX package's TPU peaks have no place
+here.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 # Training multiplier: forward + backward(2x).
 TRAIN_MULT = 3.0
 
 # NVIDIA H100 SXM, dense bf16 on the tensor cores, at 700 W.
 H100_PEAK_BF16_FLOPS = 989e12
+# An order-of-magnitude CPU estimate (the JAX package's): it makes MFU
+# non-null and comparable across runs on one machine, nothing more; its
+# provenance label says so.
+CPU_PEAK_EST_FLOPS = 50e9
+# Per-direction NVLink 4 bandwidth of one H100 SXM (900 GB/s both ways);
+# the CPU number (the JAX package's) stands in for shared memory between
+# gloo ranks on one host.
+H100_NVLINK_BYTES_PER_S = 450e9
+CPU_INTERCONNECT_EST_BYTES_PER_S = 10e9
 
 
 @dataclass(frozen=True)
@@ -239,6 +254,74 @@ def gpt_speculative_step_flops(cfg: Any, draft_cfg: Any, context_len: int,
                 for i in range(int(k)))
     verify = gpt_verify_flops(cfg, c, k)["total"]
     return {"draft": draft, "verify": verify, "total": draft + verify}
+
+
+def dense_train_flops_per_token(n_params: int) -> float:
+    """The ``6 * N`` approximation for configs we can't decompose."""
+    return 6.0 * float(n_params)
+
+
+def dense_train_step_flops(n_params: int, batch_size: int,
+                           seq_len: int) -> StepFlops:
+    per_token = dense_train_flops_per_token(n_params)
+    tokens = int(batch_size) * int(seq_len)
+    return StepFlops(total=per_token * tokens, per_token=per_token,
+                     tokens=tokens, breakdown={"dense_6n": per_token * tokens})
+
+
+def _platform(platform: Optional[str]) -> str:
+    """``platform`` lower-cased, else ``gpu`` when this process has
+    initialised CUDA and ``cpu`` otherwise."""
+    if platform:
+        return platform.lower()
+    import torch
+
+    return "gpu" if torch.cuda.is_initialized() else "cpu"
+
+
+def _card_name(device_name: Optional[str]) -> str:
+    if device_name is not None:
+        return device_name.lower()
+    import torch
+
+    return torch.cuda.get_device_name().lower()
+
+
+def peak_flops_estimate(platform: Optional[str] = None,
+                        device_name: Optional[str] = None,
+                        ) -> Tuple[float, str]:
+    """Best-available peak FLOPs of one card: ``(peak, provenance)``.
+
+    ``gpu`` whose name (``device_name``, default
+    ``torch.cuda.get_device_name()``) says H100: the H100 SXM's dense
+    bf16 rate, labelled ``gpu:h100``; any other card is assumed to be one,
+    labelled ``gpu:h100:assumed``; the CPU gets ``cpu:est``. MFU
+    consumers carry the label next to the number so that an assumed peak
+    never passes as a known one.
+    """
+    plat = _platform(platform)
+    if plat == "gpu":
+        if "h100" in _card_name(device_name):
+            return H100_PEAK_BF16_FLOPS, "gpu:h100"
+        return H100_PEAK_BF16_FLOPS, "gpu:h100:assumed"
+    return CPU_PEAK_EST_FLOPS, "cpu:est"
+
+
+def interconnect_bandwidth_estimate(platform: Optional[str] = None,
+                                    device_name: Optional[str] = None,
+                                    ) -> Tuple[float, str]:
+    """Best-available per-card interconnect bandwidth (bytes/s), with the
+    provenance contract of :func:`peak_flops_estimate`: an H100's NVLink 4
+    per direction (``gpu:h100:nvlink4``; ``...:assumed`` on another card),
+    the CPU's shared-memory estimate ``cpu:est`` for gloo ranks. The
+    comm/compute fraction (``telemetry/collectives.py``) divides payload
+    bytes by it."""
+    plat = _platform(platform)
+    if plat == "gpu":
+        label = ("gpu:h100:nvlink4" if "h100" in _card_name(device_name)
+                 else "gpu:h100:nvlink4:assumed")
+        return H100_NVLINK_BYTES_PER_S, label
+    return CPU_INTERCONNECT_EST_BYTES_PER_S, "cpu:est"
 
 
 def mfu(flops_per_sec: float, peak_flops: float = H100_PEAK_BF16_FLOPS,

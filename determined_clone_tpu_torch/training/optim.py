@@ -126,6 +126,9 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     total = (sq / torch.tensor(replicas, dtype=sq.dtype,
                                device=sq.device)).sum()
     dist.all_reduce(total)
+    from determined_clone_tpu_torch.telemetry import collectives
+
+    collectives.note("all-reduce", None, total.nbytes)
     return total.sqrt()
 
 

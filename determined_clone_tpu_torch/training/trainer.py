@@ -39,10 +39,20 @@ Seeds: the params are drawn from a generator seeded with
 loop's split and ``fold_in`` of ``PRNGKey(experiment_seed)``; the random
 streams themselves differ between the frameworks.
 
-The JAX loop's telemetry branch (spans, the XLA compile capture, the
-anomaly detector, the MFU gauges, the device memory monitor) waits for
-the port's telemetry (``ROADMAP.md``); ``core.telemetry`` is always None
-here.
+Telemetry (the ``observability:`` block; ``core.telemetry``) is the JAX
+loop's branch, at the same points of the loop: restore fallbacks
+counted, ``checkpoint_restore``, ``restore_replay``, ``checkpoint_save``,
+``validate`` and ``host_sync`` spanned; each train step's first call
+captured as its compile (``telemetry/compile.py``: seconds, fingerprint,
+FLOPs counted by ``FlopCounterMode``, and over a mesh its collectives)
+and every call a ``train_dispatch`` span synced to the device's
+completion, its steady durations fed to the step-time anomaly detector;
+eval steps ``eval_dispatch`` spans; the feeder's pulls ``dataload_wait``
+spans; per chunk the analytic and measured MFU against the card's peak
+(``mfu_peak_info`` carries the peak's and the FLOP count's provenance),
+the device memory gauges and their peak, and ``Telemetry.publish``.
+When telemetry is off the loop runs the unwrapped step and feeder, and
+adds nothing per step.
 """
 from __future__ import annotations
 
@@ -74,13 +84,27 @@ from determined_clone_tpu_torch.parallel.sharding import (
     from_block,
     host_block,
 )
+from determined_clone_tpu_torch.telemetry import flops as flops_mod
+from determined_clone_tpu_torch.telemetry.collectives import mesh_axis_sizes
+from determined_clone_tpu_torch.telemetry.compile import (
+    MfuComparator,
+    StepTimeAnomalyDetector,
+    capture_compile,
+)
+from determined_clone_tpu_torch.telemetry.device import (
+    DeviceMemoryMonitor,
+    block_until_ready,
+)
+from determined_clone_tpu_torch.telemetry.spans import null_span
 from determined_clone_tpu_torch.training.metrics import MetricAccumulator
+from determined_clone_tpu_torch.training.optim import leaves
 from determined_clone_tpu_torch.training.train_step import (
     TrainState,
     create_train_state,
     make_eval_step,
     make_train_step,
     mark_trainable,
+    param_count,
     shard_state,
     state_shardings,
 )
@@ -177,9 +201,11 @@ class Trainer:
         }
         if metric is not None:
             metadata["validation_metric"] = float(metric)
-        with self.core.checkpoint.store_path(
-                metadata=metadata, shard=dist.size > 1) as (path, holder):
-            save_pytree(f"{path}/{CKPT_STATE_DIR}", state, host_id=dist.rank)
+        with self._span("checkpoint_save", reason=reason):
+            with self.core.checkpoint.store_path(
+                    metadata=metadata, shard=dist.size > 1) as (path, holder):
+                save_pytree(f"{path}/{CKPT_STATE_DIR}", state,
+                            host_id=dist.rank)
         return holder.get("storage_id", "")
 
     def _restore(self, storage_id: str, like: TrainState) -> tuple:
@@ -199,19 +225,59 @@ class Trainer:
                 logger.warning(
                     "checkpoint %s refused (%s); falling back to the "
                     "previous committed checkpoint", sid, e.reason)
+                tel = self._telemetry
+                if tel is not None:
+                    tel.registry.counter(
+                        "checkpoint_restore_fallbacks",
+                        "restores that fell back past an uncommitted/"
+                        "corrupt checkpoint").inc()
         raise first_err if first_err is not None else RuntimeError(
             f"no restorable checkpoint for {storage_id}")
 
     def _restore_one(self, storage_id: str, like: TrainState) -> tuple:
-        with self.core.checkpoint.restore_path(storage_id) as path:
-            state = load_pytree(f"{path}/{CKPT_STATE_DIR}", like)
-            mpath = f"{path}/metadata.json"
-            meta: dict = {}
-            if os.path.exists(mpath):
-                with open(mpath) as f:
-                    meta = json.load(f)
+        with self._span("checkpoint_restore"):
+            with self.core.checkpoint.restore_path(storage_id) as path:
+                state = load_pytree(f"{path}/{CKPT_STATE_DIR}", like)
+                mpath = f"{path}/metadata.json"
+                meta: dict = {}
+                if os.path.exists(mpath):
+                    with open(mpath) as f:
+                        meta = json.load(f)
         mark_trainable(state.params)
         return state, int(meta.get("steps_completed", 0))
+
+    @property
+    def _telemetry(self):
+        return getattr(self.core, "telemetry", None)
+
+    @staticmethod
+    def _resolve_step_flops(trial: TorchTrial, state: TrainState) -> tuple:
+        """(FLOPs per optimizer step, source label). Prefers the trial's
+        analytic count; falls back to 6*N_params*tokens. A trial hook that
+        raises downgrades to the fallback — FLOPs accounting must never
+        fail training."""
+        try:
+            f = trial.train_step_flops()
+        except Exception:  # noqa: BLE001 - observability is best-effort
+            f = None
+        if f is not None:
+            return float(getattr(f, "total", f)), "analytic"
+        n_params = param_count(state.params)
+        try:
+            tokens_per_sample = int(trial.tokens_per_sample() or 1)
+        except Exception:  # noqa: BLE001 - observability is best-effort
+            tokens_per_sample = 1
+        tokens = trial.global_batch_size * max(1, tokens_per_sample)
+        return flops_mod.dense_train_flops_per_token(n_params) * tokens, \
+            "dense_6n"
+
+    @property
+    def _span(self):
+        """The tracer's span factory, or the shared no-op when telemetry is
+        off — boundary-only call sites (save/restore/sync), never per
+        batch."""
+        tel = self._telemetry
+        return tel.tracer.span if tel is not None else null_span
 
     # -- the loop -----------------------------------------------------------
 
@@ -267,6 +333,71 @@ class Trainer:
                       if k > 1 else None)
         eval_step = make_eval_step(trial.eval_metrics, seed=fold_seed(seed, 2))
 
+        # telemetry (observability: block; None when disabled — the hot
+        # loop below then runs the *unwrapped* steps and feeder, so the
+        # disabled path adds nothing per step). The sync makes each
+        # train_dispatch span cover the device's work, not the enqueue.
+        tel = self._telemetry
+        span = tel.tracer.span if tel is not None else null_span
+        platform = "gpu" if dev.type == "cuda" else "cpu"
+        step_capture = fused_capture = None
+        anomaly = memmon = None
+        if tel is not None:
+            # each step program's first call is its compile, captured
+            # (telemetry/compile.py): seconds, fingerprint and counted
+            # FLOPs land in the registry after that call
+            identity = {"hparams": trial.context.hparams,
+                        "dtypes": sorted({str(p.dtype) for p in
+                                          leaves(state.params)}),
+                        "mesh": (mesh_axis_sizes(mesh)
+                                 if mesh is not None else None)}
+            train_step = step_capture = capture_compile(
+                train_step, program="train_step", identity=identity,
+                registry=tel.registry, mesh=mesh, platform=platform)
+            if fused_step is not None:
+                fused_step = fused_capture = capture_compile(
+                    fused_step, program=f"train_step_fused_k{k}",
+                    identity=identity, registry=tel.registry, mesh=mesh,
+                    platform=platform)
+            # rolling median/MAD straggler detection over steady-state
+            # dispatch durations (compiles are excluded by wrap_jit)
+            anomaly = StepTimeAnomalyDetector(
+                tel.registry, tracer=tel.tracer,
+                window=tel.anomaly_window,
+                threshold=tel.anomaly_threshold,
+                min_samples=tel.anomaly_min_samples)
+            memmon = DeviceMemoryMonitor(tel.registry)
+            train_step = tel.wrap_jit("train_dispatch", train_step,
+                                      sync=block_until_ready,
+                                      observe=anomaly.observe)
+            if fused_step is not None:
+                fused_step = tel.wrap_jit("train_dispatch", fused_step,
+                                          sync=block_until_ready,
+                                          observe=anomaly.observe)
+            eval_step = tel.wrap_jit("eval_dispatch", eval_step,
+                                     sync=block_until_ready)
+
+        # analytic FLOPs/MFU accounting (telemetry/flops.py) — resolved
+        # once here, reported per chunk; only when telemetry is on
+        step_flops = 0.0
+        flops_source = peak_label = ""
+        peak_total = 0.0
+        mfu_cmp = None
+        if tel is not None:
+            step_flops, flops_source = self._resolve_step_flops(trial, state)
+            n_devices = mesh.size() if mesh is not None else 1
+            peak, peak_label = flops_mod.peak_flops_estimate(platform)
+            peak_total = peak * max(1, n_devices)
+
+        def measured_step_flops() -> float:
+            """The counted FLOPs of one batch's step (the fused program
+            covers k batches), once a step program has been captured."""
+            for capture, per in ((fused_capture, k), (step_capture, 1)):
+                if (capture is not None and capture.record is not None
+                        and capture.record.flops):
+                    return capture.record.flops / per
+            return 0.0
+
         sched_unit = config.scheduling_unit
         val_period = self._to_batches(config.min_validation_period, 0)
         ckpt_period = self._to_batches(config.min_checkpoint_period, 0)
@@ -278,22 +409,25 @@ class Trainer:
         # index-capable iterators fast-forward by arithmetic
         restored = batches_trained > 0
         if restored:
-            to_skip = batches_trained - 1  # first_batch discarded below
-            while to_skip > 0:
-                skipped = _skip_batches(data_iter, to_skip)
-                to_skip -= skipped
-                if to_skip > 0:
-                    # epoch exhausted mid-replay: roll into the next one
-                    data_iter = iter(trial.training_data())
-                    if skipped == 0:
-                        # the previous epoch was already drained, so the
-                        # fresh one must move — probe one batch to rule out
-                        # an empty dataset (would otherwise loop forever)
-                        if _skip_batches(data_iter, 1) == 0:
-                            raise RuntimeError(
-                                "training_data() yielded no batches while "
-                                "replaying restored progress")
-                        to_skip -= 1
+            # spanned so the goodput ledger books replay as restore badput
+            with self._span("restore_replay", batches=batches_trained - 1):
+                to_skip = batches_trained - 1  # first_batch discarded below
+                while to_skip > 0:
+                    skipped = _skip_batches(data_iter, to_skip)
+                    to_skip -= skipped
+                    if to_skip > 0:
+                        # epoch exhausted mid-replay: roll into the next one
+                        data_iter = iter(trial.training_data())
+                        if skipped == 0:
+                            # the previous epoch was already drained, so
+                            # the fresh one must move — probe one batch to
+                            # rule out an empty dataset (would otherwise
+                            # loop forever)
+                            if _skip_batches(data_iter, 1) == 0:
+                                raise RuntimeError(
+                                    "training_data() yielded no batches "
+                                    "while replaying restored progress")
+                            to_skip -= 1
 
         def batches() -> Iterator[Any]:
             if not restored:
@@ -314,7 +448,11 @@ class Trainer:
         feed = make_device_feeder(
             map(split, batches()), put,
             depth=prefetch_depth * k if prefetch_depth else 0,
-            name="train-prefetch", ready=ready)
+            name="train-prefetch", ready=ready,
+            tracer=tel.tracer if tel is not None else None,
+            registry=tel.registry if tel is not None else None)
+        if tel is not None:
+            feed = tel.wrap_feeder(feed)
 
         acc = MetricAccumulator()
         last_val: Dict[str, float] = {}
@@ -350,23 +488,31 @@ class Trainer:
                         continue
                     yield vb
 
-            vacc = MetricAccumulator()
-            vfeed = make_device_feeder(map(split, full_batches()), put,
-                                       depth=prefetch_depth,
-                                       name="eval-prefetch", ready=ready)
-            try:
-                for vbatch in vfeed:
-                    vacc.add(eval_step(state, place(vbatch)))
-            finally:
-                vfeed.close()
-            metrics = vacc.result() if len(vacc) else {}
-            if eval_dropped["examples"] and not eval_dropped["warned"]:
-                eval_dropped["warned"] = True
-                logger.warning(
-                    "validation dropped %d examples in shape-mismatched "
-                    "remainder batches (drop_remainder contract); pad or "
-                    "size the eval set to a batch multiple for full "
-                    "coverage", eval_dropped["examples"])
+            with span("validate"):
+                vacc = MetricAccumulator()
+                vfeed = make_device_feeder(
+                    map(split, full_batches()), put, depth=prefetch_depth,
+                    name="eval-prefetch", ready=ready,
+                    tracer=tel.tracer if tel is not None else None)
+                try:
+                    for vbatch in vfeed:
+                        vacc.add(eval_step(state, place(vbatch)))
+                finally:
+                    vfeed.close()
+                metrics = vacc.result() if len(vacc) else {}
+            if eval_dropped["examples"]:
+                if not eval_dropped["warned"]:
+                    eval_dropped["warned"] = True
+                    logger.warning(
+                        "validation dropped %d examples in shape-mismatched "
+                        "remainder batches (drop_remainder contract); pad "
+                        "or size the eval set to a batch multiple for full "
+                        "coverage", eval_dropped["examples"])
+                if tel is not None:
+                    tel.registry.gauge(
+                        "eval_examples_dropped",
+                        "eval examples lost to shape-mismatched remainder "
+                        "batches this fit").set(eval_dropped["examples"])
             if metrics:
                 self.core.train.report_validation_metrics(batches_trained,
                                                           metrics)
@@ -404,7 +550,8 @@ class Trainer:
                             batches_trained += 1
                         faults.point("training.post_step")
                     # ---- reporting boundary (one host sync per chunk) ----
-                    train_metrics = acc.result()
+                    with span("host_sync"):
+                        train_metrics = acc.result()
                     dt = time.perf_counter() - t0
                     t_wait = feed.take_queue_wait()
                     t_host = feed.take_host_time()
@@ -412,6 +559,51 @@ class Trainer:
                         (batches_trained - n0) / dt)
                     train_metrics["samples_per_second"] = (
                         (batches_trained - n0) * trial.global_batch_size / dt)
+                    if tel is not None and step_flops:
+                        # FLOPs throughput + MFU against the (known or
+                        # assumed) peak; the provenance labels travel with
+                        # the number
+                        fps = step_flops * train_metrics["batches_per_second"]
+                        mfu_val = flops_mod.mfu(fps, peak_total)
+                        train_metrics["flops_per_sec"] = fps
+                        train_metrics["mfu"] = mfu_val
+                        reg = tel.registry
+                        reg.gauge("samples_per_sec",
+                                  "training throughput").set(
+                            train_metrics["samples_per_second"])
+                        reg.gauge("flops_per_sec",
+                                  "analytic model FLOPs per second").set(fps)
+                        reg.gauge("mfu",
+                                  "model FLOPs utilization vs peak "
+                                  "(provenance: mfu_peak_info labels)").set(
+                            mfu_val)
+                        reg.gauge("mfu_peak_flops",
+                                  "peak FLOPs the MFU denominator assumes "
+                                  "(all participating devices)").set(
+                            peak_total)
+                        reg.gauge(
+                            "mfu_peak_info",
+                            "constant 1; labels carry the peak provenance "
+                            "and FLOPs-count source",
+                            labels={"assumed": peak_label,
+                                    "flops_source": flops_source}).set(1)
+                        measured = measured_step_flops()
+                        if measured and mfu_cmp is None:
+                            mfu_cmp = MfuComparator(
+                                reg, peak_flops_total=peak_total)
+                        if mfu_cmp is not None:
+                            train_metrics["mfu_measured"] = mfu_cmp.report(
+                                measured_flops_per_batch=measured,
+                                batches_per_second=train_metrics[
+                                    "batches_per_second"],
+                                analytic_mfu=mfu_val)
+                    if memmon is not None:
+                        # per-device gauges + the between-boundary peak
+                        memmon.sample()
+                        tel.registry.gauge(
+                            "device_memory_peak_bytes",
+                            "peak summed device bytes_in_use since the "
+                            "previous chunk boundary").set(memmon.take_peak())
                     self.core.train.report_training_metrics(batches_trained,
                                                             train_metrics)
                     if profiler is not None:
@@ -420,6 +612,10 @@ class Trainer:
                             compute_s=max(dt - t_wait, 0.0),
                             queue_wait_s=t_wait, steps_per_dispatch=k,
                             prefetch_depth=prefetch_depth)
+                    if tel is not None:
+                        # batched telemetry shipping rides the chunk
+                        # boundary
+                        tel.publish(profiler, batches_trained)
                     op.report_progress(batches_trained)
 
                     if val_period and batches_trained - last_val_at >= val_period:

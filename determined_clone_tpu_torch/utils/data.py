@@ -34,6 +34,7 @@ import torch
 
 from determined_clone_tpu_torch import faults
 from determined_clone_tpu_torch.device import DeviceLike, resolve_device
+from determined_clone_tpu_torch.telemetry.spans import null_span
 
 _PROTO_SEED = 1234  # class prototypes are fixed across splits
 
@@ -275,15 +276,28 @@ class DevicePrefetcher:
 
     Exceptions raised by the host iterator or by ``put`` are forwarded to
     the consumer and re-raised from ``next()``.
+
+    ``tracer`` and ``registry`` opt the producer into the JAX feeder's
+    telemetry: ``produce_batch``, ``dataload_next`` and ``device_put``
+    spans and a ``device_put_seconds`` histogram.
     """
 
     def __init__(self, iterator: Iterable[Any],
                  put: Optional[Callable[[Any], Any]] = None, *,
                  depth: int = 2, name: str = "device-prefetch",
-                 ready: Optional[Callable[[Any], Any]] = None) -> None:
+                 ready: Optional[Callable[[Any], Any]] = None,
+                 tracer: Optional[Any] = None,
+                 registry: Optional[Any] = None) -> None:
         self._it = iter(iterator)
         self._put = put if put is not None else _identity
         self._ready = ready if ready is not None else _identity
+        # telemetry is opt-in: without a tracer every span is the shared
+        # no-op and the producer body is unchanged
+        self._span = tracer.span if tracer is not None else null_span
+        self._put_hist = (registry.histogram(
+            "device_put_seconds",
+            "host→device transfer time per batch (producer thread)")
+            if registry is not None else None)
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
         self._stop = threading.Event()
         self._finished = False           # consumer saw done/error
@@ -310,20 +324,39 @@ class DevicePrefetcher:
         return False
 
     def _producer(self) -> None:
+        span = self._span
         while not self._stop.is_set():
             t0 = time.perf_counter()
-            try:
-                # injected errors ride the normal forwarding path: the
-                # consumer re-raises at its next __next__
-                faults.point("data.produce")
-                batch = self._put(next(self._it))
-            except StopIteration:
-                self._offer((_DONE, None))
-                return
-            except BaseException as exc:  # noqa: BLE001 - forwarded
-                self._offer((_ERROR, exc))
-                return
-            self._host_time_s += time.perf_counter() - t0
+            # the produce_batch span covers pull + put only — queue
+            # offers (back-pressure from a full queue is the healthy
+            # state) are excluded, matching host_time accounting
+            with span("produce_batch") as sp:
+                try:
+                    # injected errors ride the normal forwarding path: the
+                    # consumer re-raises at its next __next__
+                    faults.point("data.produce")
+                    with span("dataload_next"):
+                        batch = next(self._it)
+                except StopIteration:
+                    sp.set(end="exhausted")
+                    self._offer((_DONE, None))
+                    return
+                except BaseException as exc:  # noqa: BLE001 - forwarded
+                    sp.set(end="error")
+                    self._offer((_ERROR, exc))
+                    return
+                t1 = time.perf_counter()
+                try:
+                    with span("device_put"):
+                        batch = self._put(batch)
+                except BaseException as exc:  # noqa: BLE001 - forwarded
+                    sp.set(end="error")
+                    self._offer((_ERROR, exc))
+                    return
+                t2 = time.perf_counter()
+                if self._put_hist is not None:
+                    self._put_hist.observe(t2 - t1)
+                self._host_time_s += t2 - t0
             if not self._offer((_ITEM, batch)):
                 return
 
@@ -386,9 +419,16 @@ class SyncDeviceFeeder:
     the same shape with prefetch on or off."""
 
     def __init__(self, iterator: Iterable[Any],
-                 put: Optional[Callable[[Any], Any]] = None) -> None:
+                 put: Optional[Callable[[Any], Any]] = None, *,
+                 tracer: Optional[Any] = None,
+                 registry: Optional[Any] = None) -> None:
         self._it = iter(iterator)
         self._put = put if put is not None else _identity
+        self._span = tracer.span if tracer is not None else null_span
+        self._put_hist = (registry.histogram(
+            "device_put_seconds",
+            "host→device transfer time per batch (consumer thread, sync)")
+            if registry is not None else None)
         self._host_time_s = 0.0
         self._taken = {"wait": 0.0, "host": 0.0}
 
@@ -398,8 +438,15 @@ class SyncDeviceFeeder:
     def __next__(self) -> Any:
         t0 = time.perf_counter()
         faults.point("data.produce")  # parity with the prefetching producer
-        batch = self._put(next(self._it))
-        self._host_time_s += time.perf_counter() - t0
+        with self._span("dataload_next"):
+            batch = next(self._it)
+        t1 = time.perf_counter()
+        with self._span("device_put"):
+            batch = self._put(batch)
+        t2 = time.perf_counter()
+        if self._put_hist is not None:
+            self._put_hist.observe(t2 - t1)
+        self._host_time_s += t2 - t0
         return batch
 
     def _take(self, key: str) -> float:
@@ -421,10 +468,15 @@ class SyncDeviceFeeder:
 def make_device_feeder(iterator: Iterable[Any],
                        put: Optional[Callable[[Any], Any]] = None, *,
                        depth: int = 2, name: str = "device-prefetch",
-                       ready: Optional[Callable[[Any], Any]] = None):
+                       ready: Optional[Callable[[Any], Any]] = None,
+                       tracer: Optional[Any] = None,
+                       registry: Optional[Any] = None):
     """``depth >= 1`` → async :class:`DevicePrefetcher`; ``depth == 0`` →
-    :class:`SyncDeviceFeeder`, whose inline ``put`` needs no ``ready``."""
+    :class:`SyncDeviceFeeder`, whose inline ``put`` needs no ``ready``.
+    ``tracer``/``registry`` opt the feeder into telemetry spans and
+    metrics."""
     if depth and depth > 0:
         return DevicePrefetcher(iterator, put, depth=depth, name=name,
-                                ready=ready)
-    return SyncDeviceFeeder(iterator, put)
+                                ready=ready, tracer=tracer,
+                                registry=registry)
+    return SyncDeviceFeeder(iterator, put, tracer=tracer, registry=registry)
