@@ -214,7 +214,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``n_layers`` per eval batch; (g) samples/s printed beside phase 7's
    (the per-step sync's cost; no bound); (h) the scaling bench at one
    rank (``parallel/scaling_bench.py``, in a one-rank NCCL world) gives
-   an artifact that ``validate_multichip`` accepts.
+   an artifact that ``validate_multichip`` accepts;
+14. the control-plane slice: an ASHA search of four ``GPTTrial``s at
+   phase 7's hyperparameters but ``lr`` log-uniform in [10^-4.5,
+   10^-3] (``SEARCH``: 2 rungs at 10 and 20 batches, divisor 2,
+   ``scheduling_unit`` 10, ``max_restarts`` 1, ``observability`` on with
+   spans and metrics shipped), through ``ExperimentConfig.from_dict`` →
+   ``LocalExperimentRunner(..., master=InProcessMaster(),
+   device="cuda").run()``, the first promoted trial's rung-1 leg raising
+   once before its first step: (a) 4 trials created, the searcher shut
+   down, every trial completed, at least one promoted to 20 batches, and
+   each promoted trial's reports at 10 then 20 with its checkpoint
+   registered under its own request id (it resumed its own checkpoint);
+   (b) the best promoted trial's final searcher metric and state (params
+   and Adam moments) equal an unbroken 20-batch ``fit_trial`` of its
+   hparams bit for bit; (c) the failed leg restarted once
+   (``restarts`` 1, the runner's ``trial_restarts_total`` 1); (d) the
+   events the searcher was given, replayed into a fresh ``Searcher``
+   built from the same config and seed, give the same operations; (e)
+   the master's ``/metrics`` over ``serve_http`` has the four trials'
+   rollups and the restart counter, and its spans the runner's
+   ``experiment`` lane and its 7 ``trial_leg`` spans under one trace id;
+   (f) the flash launches ``2 * n_layers`` per train batch and
+   ``n_layers`` per eval batch of every leg. Prints each trial's lr,
+   rung, legs, restarts and metrics, the search's wall, its saves and
+   restores, and the share of the wall in training steps.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
@@ -223,8 +247,9 @@ attends with plain ``mha``, as in the JAX package); ``train_launches``
 is that of phase 6's 32 steps and ``trial_launches`` that of phase 7's
 two legs; phases 8, 9 and 10 launch none (``serving_launches``,
 ``fleet_launches``); ``parallel_launches`` is phase 11's, (b) to (d);
-``pipeline_launches`` is phase 12's (b) and ``telemetry_launches``
-phase 13's two legs.
+``pipeline_launches`` is phase 12's (b), ``telemetry_launches``
+phase 13's two legs and ``search_launches`` phase 14's search (its
+witness run not counted).
 The last
 three lines are the kernels' JSON line, the card's name and power limit,
 and the result; the line before them gives the whole script's wall
@@ -1001,6 +1026,7 @@ def phase_train() -> dict:
 
 
 # examples/gpt_fsdp/fsdp.yaml's hyperparameters, on one card (no mesh)
+TRIAL_METRIC = "loss"      # the trials' searcher metric (phases 7 and 14)
 GPT_FSDP_HPARAMS = {"global_batch_size": 8, "lr": 3.0e-4, "weight_decay": 0.1,
                     "vocab_size": 50304, "n_layers": 12, "d_model": 768,
                     "n_heads": 12, "d_ff": 3072, "seq_len": 1024,
@@ -1067,7 +1093,8 @@ def _trial_classes():
     return RecordingGPTTrial, TimedTrainer
 
 
-def fit_trial(storage, max_batches, *, latest=None, extra=None) -> dict:
+def fit_trial(storage, max_batches, *, latest=None, extra=None,
+              hparams=GPT_FSDP_HPARAMS) -> dict:
     """``core.init(config=...)`` → ``Trainer(GPTTrial).fit()``: what a
     user of the port calls to train a trial. Returns the result, the
     reports, the final state, the first batch trained and the timings."""
@@ -1077,18 +1104,18 @@ def fit_trial(storage, max_batches, *, latest=None, extra=None) -> dict:
 
     trial_cls, trainer_cls = _trial_classes()
     cfg = ExperimentConfig.from_dict({
-        "searcher": {"name": "single", "metric": "loss",
+        "searcher": {"name": "single", "metric": TRIAL_METRIC,
                      "max_length": {"batches": max_batches}},
         "scheduling_unit": 10,
         "checkpoint_storage": {"type": "shared_fs", "host_path": storage},
-        "hyperparameters": GPT_FSDP_HPARAMS,
+        "hyperparameters": hparams,
         "resources": {"slots_per_trial": 1},
         **(extra or {})})
     with core.init(config=cfg, trial_id=1) as ctx:
         tel = ctx.telemetry
         timings = ctx.profiler = _BatchTimings(
             tel.registry if tel is not None else None)
-        trial = trial_cls(TrialContext(config=cfg, hparams=GPT_FSDP_HPARAMS,
+        trial = trial_cls(TrialContext(config=cfg, hparams=hparams,
                                        core=ctx))
         trainer = trainer_cls(trial)
         t0 = time.monotonic()
@@ -1401,10 +1428,12 @@ def family_mnist(storage, device="cuda") -> dict:
 
     cfg = ExperimentConfig.from_yaml(
         os.path.join(REPO, "examples", "mnist", "const.yaml"))
-    run = fit_family(MnistTrial, cfg, cfg.hyperparameters, storage, device)
+    run = fit_family(MnistTrial, cfg, cfg.hyperparameters.raw, storage,
+                     device)
     accs = [m["accuracy"] for _, m in run["validation"]]
     run["best_accuracy"] = max(accs)
-    log(_rate_line("mnist", run, cfg.hyperparameters["global_batch_size"]))
+    log(_rate_line("mnist", run,
+                   cfg.hyperparameters.raw["global_batch_size"]))
     log(f"[families] mnist: validation accuracy "
         f"{', '.join(f'{a:.4f}' for a in accs)} at "
         f"{', '.join(str(s) for s, _ in run['validation'])}")
@@ -4020,6 +4049,289 @@ def phase_telemetry(trial) -> dict:
     return out
 
 
+# phase 14: the control-plane slice — an ASHA search of GPT-124M trials
+SEARCH = {"name": "asha", "max_trials": 4, "num_rungs": 2, "divisor": 2,
+          "max_length": {"batches": 20}, "max_concurrent_trials": 4}
+SEARCH_LR = {"type": "log", "base": 10, "minval": -4.5, "maxval": -3.0}
+
+
+def _search_trial_class():
+    """The port's GPT trial whose first leg past rung 0 raises once, in
+    ``training_data`` (before any step or restore), as
+    ``tests/test_observability_plane.py``'s trial does. The runner runs its
+    queue in order, so legs 1-4 are the four rung-0 legs and the fifth is
+    the first promoted trial's rung-1 leg."""
+    from determined_clone_tpu_torch.examples.gpt_fsdp import GPTTrial
+
+    class FlakyGPTTrial(GPTTrial):
+        legs = 0
+        failed = []
+
+        def __init__(self, context):
+            super().__init__(context)
+            FlakyGPTTrial.legs += 1
+            self.leg = FlakyGPTTrial.legs
+
+        def training_data(self):
+            if self.leg == 5 and not FlakyGPTTrial.failed:
+                FlakyGPTTrial.failed.append(self.context.hparams)
+                raise RuntimeError("injected failure before the first step")
+            return super().training_data()
+
+    return FlakyGPTTrial
+
+
+def _recording_searcher(method):
+    """A ``Searcher`` that records every event it is given and the
+    operations it answers, as (event, args, operations JSON)."""
+    from determined_clone_tpu_torch.searcher import Searcher
+    from determined_clone_tpu_torch.searcher.custom import ops_to_json
+
+    class Recording(Searcher):
+        def __init__(self, method):
+            super().__init__(method)
+            self.events = []
+
+        def _rec(self, event, args, ops):
+            self.events.append((event, args, ops_to_json(ops)))
+            return ops
+
+        def initial_operations(self):
+            return self._rec("initial", (), super().initial_operations())
+
+        def trial_created(self, request_id):
+            return self._rec("trial_created", (request_id,),
+                             super().trial_created(request_id))
+
+        def validation_completed(self, request_id, metric, units):
+            return self._rec("validation_completed",
+                             (request_id, metric, units),
+                             super().validation_completed(request_id,
+                                                          metric, units))
+
+        def trial_closed(self, request_id):
+            return self._rec("trial_closed", (request_id,),
+                             super().trial_closed(request_id))
+
+        def trial_exited_early(self, request_id, reason):
+            return self._rec("trial_exited_early", (request_id, reason),
+                             super().trial_exited_early(request_id, reason))
+
+    return Recording(method)
+
+
+def _metrics_records(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_search() -> dict:
+    """Phase 14: an ASHA search of GPT-124M trials through
+    ``ExperimentConfig.from_dict`` → ``LocalExperimentRunner(...,
+    master=InProcessMaster(), device="cuda").run()``, with checks (a)-(f)
+    of the module docstring; the flash launches of the search are
+    ``search_launches``."""
+    import math
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.api import InProcessMaster, serve_http
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.experiment import LocalExperimentRunner
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.searcher import Searcher, build_method
+    from determined_clone_tpu_torch.searcher.custom import ops_to_json
+    from determined_clone_tpu_torch.training.optim import leaves
+    from determined_clone_tpu_torch.utils.retry import RetryPolicy
+
+    t_phase = time.monotonic()
+    metric = TRIAL_METRIC
+    storage = tempfile.mkdtemp(prefix="chip-smoke-search-")
+    hparams = dict(GPT_FSDP_HPARAMS, lr=SEARCH_LR)
+    raw = {"searcher": {**SEARCH, "metric": metric},
+           "scheduling_unit": 10, "max_restarts": 1,
+           "checkpoint_storage": {"type": "shared_fs", "host_path": storage},
+           "hyperparameters": hparams,
+           "resources": {"slots_per_trial": 1},
+           "observability": {"enabled": True, "ship_spans": True,
+                             "ship_metrics": True}}
+    trial_cls = _search_trial_class()
+    try:
+        cfg = ExperimentConfig.from_dict(raw)
+        master = InProcessMaster()
+        runner = LocalExperimentRunner(
+            cfg, trial_cls, storage_path=storage, master=master,
+            device="cuda",
+            restart_backoff=RetryPolicy(name="search_restart",
+                                        max_attempts=1, base_delay_s=0.0,
+                                        max_delay_s=0.0, jitter="none"))
+        runner.engine = _recording_searcher(runner.engine.method)
+        flash_attention.launches = 0
+        t0 = time.monotonic()
+        result = runner.run()
+        wall = time.monotonic() - t0
+        launches = flash_attention.launches
+
+        trials = result.trials
+        records = {rid: _metrics_records(t.metrics_path)
+                   for rid, t in trials.items()}
+        registry = core.LocalCheckpointRegistry(
+            os.path.join(storage, "checkpoints.jsonl")).list()
+        promoted = [t for t in trials.values() if t.units_done == 20]
+        best = min(promoted, key=lambda t: t.best_metric)
+        restarted = [t for t in trials.values() if t.restarts]
+
+        # (b) the unbroken witness of the best promoted trial's hparams
+        witness = fit_trial(storage + "-witness", 20, hparams=best.hparams,
+                            extra={"checkpoint_policy": "none"})
+        with core.init(config=None, storage_path=storage) as ctx:
+            with ctx.checkpoint.restore_path(best.latest_checkpoint) as path:
+                loaded = core.load_pytree(os.path.join(path, "state"),
+                                          witness["state"])
+        w_state = witness["state"]
+        adam_w, adam_l = w_state.opt_state[1][0], loaded.opt_state[1][0]
+        pairs = list(zip(leaves(w_state.params), leaves(loaded.params)))
+        pairs += list(zip(leaves(adam_w.mu), leaves(adam_l.mu)))
+        pairs += list(zip(leaves(adam_w.nu), leaves(adam_l.nu)))
+        bitwise = all(torch.equal(a.detach(), b) for a, b in pairs)
+        loaded_step = (loaded.step, adam_l.count)
+        witness_metric = witness["result"]["last_validation"][metric]
+        del loaded, pairs, w_state, adam_w, adam_l
+        witness["state"] = None
+
+        # (d) the recorded events replayed into a fresh searcher
+        fresh = Searcher(build_method(cfg.searcher, cfg.hyperparameters,
+                                      seed=cfg.experiment_seed))
+        replay = []
+        for event, args, _ops in runner.engine.events:
+            fn = {"initial": fresh.initial_operations,
+                  "trial_created": fresh.trial_created,
+                  "validation_completed": fresh.validation_completed,
+                  "trial_closed": fresh.trial_closed,
+                  "trial_exited_early": fresh.trial_exited_early}[event]
+            replay.append((event, args, ops_to_json(fn(*args))))
+
+        # (e) the master over HTTP
+        server = serve_http(master)
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/metrics",
+                    timeout=30) as r:
+                metrics_text = r.read().decode()
+        finally:
+            server.stop()
+        spans = master.spans(experiment_id=runner.experiment_id)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        shutil.rmtree(storage + "-witness", ignore_errors=True)
+
+    ops = [o for _e, _a, out in runner.engine.events for o in out]
+    creates = [o for o in ops if o["type"] == "create"]
+    train_batches = sum(t.units_done for t in trials.values())
+    eval_batches = sum(1 for recs in records.values() for r in recs
+                       if r["group"] == "validation")
+    per_step = 2 * hparams["n_layers"]
+    want_launches = per_step * train_batches + hparams["n_layers"] * \
+        eval_batches
+    trial_ids = {f'trial_id="{rid}"' for rid in trials}
+    leg_spans = [sp for sp in spans if sp.get("name") == "trial_leg"]
+    lanes = [sp for sp in spans if sp.get("name") in ("experiment",
+                                                      "trial_leg")]
+
+    def durations(name):
+        return [sp["dur_us"] / 1e6 for sp in spans
+                if sp.get("name") == name and "trial_id" in sp]
+
+    saves, restores = durations("checkpoint_save"), durations(
+        "checkpoint_restore")
+    steps_s = sum(durations("train_dispatch"))
+    checks = {
+        "(a) 4 trials created, the searcher shut down": (
+            len(creates) == 4 and result.n_trials == 4 and result.shutdown
+            and ops[-1]["type"] == "shutdown"),
+        "(a) every trial completed": all(
+            t.state == "completed" for t in trials.values()),
+        "(a) a trial promoted from rung 0 (10) to rung 1 (20)": bool(
+            promoted) and all(t.units_done in (10, 20)
+                              for t in trials.values()),
+        "(a) each promoted leg resumed its own checkpoint: registry "
+        "trial_id = request_id, reports at 10 then 20": all(
+            [r["steps_completed"] for r in records[t.request_id]
+             if r["group"] == "training"] == [10, 20]
+            and [r["steps_completed"] for r in records[t.request_id]
+                 if r["group"] == "validation"] == [10, 20]
+            and [r.get("trial_id") for r in registry
+                 if r["storage_id"] == t.latest_checkpoint]
+            == [t.request_id]
+            for t in promoted),
+        "(b) the best promoted trial's metric and state equal an unbroken "
+        "20-batch run bit for bit": (
+            best.last_metric == witness_metric and bitwise
+            and loaded_step == (20, 20)),
+        "(c) the first promoted leg restarted once from its checkpoint": (
+            len(restarted) == 1 and restarted[0].restarts == 1
+            and restarted[0].units_done == 20
+            and restarted[0].hparams == trial_cls.failed[0]
+            and runner.registry.counter("trial_restarts_total").value == 1),
+        "(d) the recorded events replayed into a fresh searcher give the "
+        "same operations": replay == runner.engine.events,
+        "(e) /metrics has the 4 trials' rollups and the restart counter": (
+            all(tid in metrics_text for tid in trial_ids)
+            and 'trial_restarts_total{component="runner"} 1' in metrics_text
+            and "dct_cluster_trial_restarts_total 1" in metrics_text),
+        "(e) the master's spans hold the experiment and trial_leg lanes "
+        "under one trace id": (
+            {sp["name"] for sp in lanes} == {"experiment", "trial_leg"}
+            and len({sp.get("trace_id") for sp in lanes}) == 1
+            and len(leg_spans) == 7),
+        f"(f) flash launches {want_launches} ({per_step} x {train_batches} "
+        f"train batches + {hparams['n_layers']} x {eval_batches} eval "
+        f"batches)": launches == want_launches,
+        "every reported loss finite": all(
+            math.isfinite(r["metrics"]["loss"]) for recs in records.values()
+            for r in recs),
+    }
+    for rid, t in sorted(trials.items()):
+        log(f"[search] trial {rid}: hparams lr {t.hparams['lr']:.6g} (the "
+            f"rest GPT_FSDP_HPARAMS), rung "
+            f"{0 if t.units_done == 10 else 1} ({t.units_done} batches), "
+            f"legs {sum(1 for sp in leg_spans if sp['args'].get('trial_id') == rid)}"
+            f", restarts {t.restarts}, {metric} "
+            + ", ".join(f"{r['metrics']['loss']:.4f}@{r['steps_completed']}"
+                        for r in records[rid] if r["group"] == "validation")
+            + f", state {t.state}")
+    log(f"[search] wall {wall:.1f} s; saves {len(saves)} "
+        f"({', '.join(f'{v:.2f}' for v in saves)} s); restores "
+        f"{len(restores)} ({', '.join(f'{v:.2f}' for v in restores)} s); "
+        f"training steps {steps_s:.1f} s = {steps_s / wall:.3f} of the wall;"
+        f" flash launches {launches}; best trial {best.request_id} "
+        f"({metric} {best.last_metric:.6f}, witness {witness_metric:.6f}, "
+        f"witness fit {witness['wall_s']:.1f} s)")
+    for name, ok in checks.items():
+        log(f"[search] check {'ok' if ok else 'FAILED'}: {name}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 14 checks failed: {failed}")
+    phase_s = time.monotonic() - t_phase
+    log(f"[search] phase 14 wall {phase_s:.1f} s; flash launches {launches}")
+    return {"launches": launches, "wall_s": wall, "phase_s": phase_s,
+            "checks": checks,
+            "train_batches": train_batches, "eval_batches": eval_batches,
+            "saves_s": saves, "restores_s": restores, "steps_s": steps_s,
+            "witness_wall_s": witness["wall_s"],
+            "trials": {rid: {"hparams": t.hparams, "units": t.units_done,
+                             "restarts": t.restarts, "state": t.state,
+                             "metrics": [(r["steps_completed"],
+                                          r["metrics"]["loss"])
+                                         for r in records[rid]
+                                         if r["group"] == "validation"]}
+                       for rid, t in trials.items()}}
+
+
 class _Tok:
     """A /v1/generate reply as check_greedy reads a result."""
 
@@ -4083,6 +4395,7 @@ def main(argv) -> int:
     report["parallel"] = phase_parallel(report["trial"]["legs"]["leg1"])
     report["second_half"] = phase_second_half(report["train"])
     report["telemetry"] = phase_telemetry(report["trial"]["legs"])
+    report["search"] = phase_search()
 
     smi = card_line()
     # the main path's case (bf16 at the GPT width) and, beside it, the
@@ -4101,6 +4414,7 @@ def main(argv) -> int:
         "parallel_launches": report["parallel"]["launches"],
         "pipeline_launches": report["second_half"]["launches"],
         "telemetry_launches": report["telemetry"]["launches"],
+        "search_launches": report["search"]["launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

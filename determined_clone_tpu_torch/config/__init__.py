@@ -1,16 +1,28 @@
-"""Experiment configuration — the port's trimmed copy of the JAX
-package's ``config`` (the fields the training loop and the serving
-engine read)."""
+"""Experiment configuration — the port's copy of the JAX package's
+``config``: the experiment config with its schema and v0 shims, the
+hyperparameter space, and training lengths."""
 from determined_clone_tpu_torch.config.experiment import (
     CheckpointStorageConfig,
     ConfigError,
     ExperimentConfig,
+    LogPolicy,
     ObservabilityConfig,
     OptimizationsConfig,
     ResourcesConfig,
     SearcherConfig,
     ServingConfig,
     SpeculativeConfig,
+    merge_configs,
+)
+from determined_clone_tpu_torch.config.hyperparameters import (
+    Categorical,
+    Const,
+    Double,
+    Hyperparameter,
+    HyperparameterSpace,
+    Int,
+    Log,
+    parse_hyperparameter,
 )
 from determined_clone_tpu_torch.config.length import Length, Unit
 
@@ -18,12 +30,22 @@ __all__ = [
     "CheckpointStorageConfig",
     "ConfigError",
     "ExperimentConfig",
-    "Length",
+    "LogPolicy",
     "ObservabilityConfig",
     "OptimizationsConfig",
     "ResourcesConfig",
     "SearcherConfig",
     "ServingConfig",
     "SpeculativeConfig",
+    "merge_configs",
+    "Categorical",
+    "Const",
+    "Double",
+    "Hyperparameter",
+    "HyperparameterSpace",
+    "Int",
+    "Log",
+    "parse_hyperparameter",
+    "Length",
     "Unit",
 ]

@@ -1,37 +1,29 @@
-"""Experiment configuration — the port's trimmed copy of
-``determined_clone_tpu/config/experiment.py``.
+"""Experiment configuration — the port's copy of
+``determined_clone_tpu/config/experiment.py``: every block, its defaults,
+its checks and its messages, and the same pipeline (expconf/parse.go):
+legacy (v0) spellings shimmed (``config/shims.py``, the notes kept in
+``ExperimentConfig.deprecations``), the raw mapping validated against the
+schema as data (``config/schema.py``), then the dataclasses parse values.
+``hyperparameters`` is a :class:`HyperparameterSpace`; its ``raw`` is the
+mapping a trial reads.
 
-It keeps the fields the training loop and the serving engine read, with
-the JAX package's defaults, and raises :class:`ConfigError` where the
-JAX config does for them: an unknown key, a value of the wrong type, an
-unknown searcher name or storage type, a storage block without its
-path, a negative ``prefetch_depth``, ``steps_per_dispatch`` or
-``scheduling_unit`` below 1, an unknown ``checkpoint_policy``, a fault
-rule without a point, and every check of the ``serving:`` block
-(:class:`ServingConfig`, :class:`SpeculativeConfig`, with the JAX
-package's messages). Blocks that describe the cluster and not the trial
-(labels, workspace, log policies, ``environment``, ``data``) are
-accepted and not parsed. Of the legacy (v0) spellings the JAX package
-shims, only the horovod-era ``optimizations`` keys are accepted (and
-ignored, as the shim drops them).
-
-The ``observability:`` block is :class:`ObservabilityConfig`, the JAX
-package's, with its checks and messages (its ``rules`` are validated as
-the JAX ``AlertRule`` validates them; ``timeseries`` and ``rules`` are
-read by the master's time-series store, in the JAX package too, and by
-nothing in a trial).
+Where the JAX package validates an alert rule with ``telemetry/rules.py``,
+the port checks the rule as that module does (``_check_alert_rule``);
+the rule engine itself is the master's time-series layer.
 
 A block whose behaviour the port does not have yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item instead of
 training without it: a cloud or content-addressed ``checkpoint_storage``
-type. ``resources.slots_per_trial``
-above 1 is a trial over that many ranks (``exec/launch.py``).
+type, after the JAX package's own checks of the block.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+from determined_clone_tpu_torch.config.hyperparameters import (
+    HyperparameterSpace,
+)
 from determined_clone_tpu_torch.config.length import Length
 
 
@@ -39,141 +31,280 @@ class ConfigError(ValueError):
     """Invalid experiment configuration."""
 
 
-_SEARCHER_NAMES = {"single", "random", "grid", "asha", "adaptive_asha",
-                   "custom"}
-_STORAGE_TYPES = {"shared_fs", "directory", "gcs", "s3", "azure", "cas"}
-_PORTED_STORAGE = {"shared_fs", "directory"}
-# every top-level key of the JAX package's experiment schema
-_TOP_LEVEL = {
-    "config_version", "name", "entrypoint", "template", "workspace",
-    "project", "unmanaged", "labels", "searcher", "checkpoint_storage",
-    "checkpoint_policy", "min_validation_period", "min_checkpoint_period",
-    "perform_initial_validation", "max_restarts", "records_per_epoch",
-    "scheduling_unit", "reproducibility", "resources", "hyperparameters",
-    "log_policies", "profiling", "observability", "serving", "faults",
-    "optimizations", "environment", "data",
-}
-_RESOURCES_KEYS = {"slots_per_trial", "resource_pool", "priority",
-                   "topology", "max_slots"}
-_SERVING_KEYS = {"max_batch", "max_prefill_len", "kv_block_size",
-                 "kv_blocks", "max_queue_depth", "default_max_new_tokens",
-                 "host", "port", "prefix_cache", "chunk_prefill_len",
-                 "speculative"}
-_SPECULATIVE_KEYS = {"enabled", "k", "draft_layers", "draft_d_model",
-                     "draft_n_heads", "draft_d_ff"}
-_FAULT_RULE_KEYS = {"point", "action", "nth", "times", "probability",
-                    "delay_s", "exc", "message", "exit_code", "keep_bytes"}
-_FAULT_ACTIONS = ("error", "delay", "truncate", "exit")
-_FAULT_EXCS = ("fault", "io", "conn")
-_LENGTH_UNITS = {"batches", "records", "epochs"}
+# ---------------------------------------------------------------------------
+# Searcher union (reference: expconf/searcher_config.go:16-28)
+# ---------------------------------------------------------------------------
 
-_ROADMAP_STORAGE = "ROADMAP.md, Queue 1: the cloud storage managers"
-
-
-def _mapping(raw: Any, where: str) -> Dict[str, Any]:
-    if not isinstance(raw, dict):
-        raise ConfigError(f"{where} must be a mapping, got {raw!r}")
-    return raw
-
-
-def _known(raw: Dict[str, Any], keys: set, where: str) -> None:
-    unknown = sorted(set(raw) - keys)
-    if unknown:
-        raise ConfigError(f"{where}.{unknown[0]}: unknown field "
-                          f"(known: {sorted(keys)})")
-
-
-def _int(raw: Dict[str, Any], key: str, default: int, where: str) -> int:
-    v = raw.get(key, default)
-    if not isinstance(v, int) or isinstance(v, bool):
-        raise ConfigError(f"{where}.{key}: expected integer, got "
-                          f"{type(v).__name__}")
-    return v
-
-
-def _length(raw: Any, where: str) -> Length:
-    if isinstance(raw, dict):
-        _known(raw, _LENGTH_UNITS, where)
-    try:
-        return Length.from_dict(raw)
-    except ValueError as e:
-        raise ConfigError(f"{where}: {e}") from None
+_SEARCHER_NAMES = {"single", "random", "grid", "asha", "adaptive_asha", "custom"}
 
 
 @dataclasses.dataclass
 class SearcherConfig:
-    """The searcher fields the loop reads; the search method's own
-    settings are the master's and are not parsed."""
     name: str = "single"
     metric: str = "loss"
     smaller_is_better: bool = True
     max_length: Optional[Length] = None
+    # random
+    max_trials: int = 1
+    # asha / adaptive_asha
+    max_time: Optional[int] = None      # rungs ceiling, in scheduling units
+    num_rungs: int = 5
+    divisor: int = 4
+    max_concurrent_trials: int = 16
+    # adaptive_asha
+    mode: str = "standard"              # aggressive | standard | conservative
+    bracket_rungs: Optional[List[int]] = None
+    # single / stopping-based asha
+    stop_once: bool = False
+    # source-of-truth blob for anything extra (custom searchers)
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "SearcherConfig":
-        raw = _mapping(raw, "searcher")
+        if not isinstance(raw, dict):
+            raise ConfigError(f"searcher must be a mapping, got {raw!r}")
         name = raw.get("name", "single")
         if name not in _SEARCHER_NAMES:
-            raise ConfigError(f"unknown searcher name {name!r}; expected one "
-                              f"of {sorted(_SEARCHER_NAMES)}")
-        metric = raw.get("metric", "loss")
-        if not isinstance(metric, str):
-            raise ConfigError(f"searcher.metric: expected string, got "
-                              f"{type(metric).__name__}")
-        smaller = raw.get("smaller_is_better", True)
-        if not isinstance(smaller, bool):
-            raise ConfigError("searcher.smaller_is_better: expected boolean")
-        return SearcherConfig(
-            name=name, metric=metric, smaller_is_better=smaller,
-            max_length=(_length(raw["max_length"], "searcher.max_length")
-                        if "max_length" in raw else None))
+            raise ConfigError(
+                f"unknown searcher name {name!r}; expected one of {sorted(_SEARCHER_NAMES)}"
+            )
+        known = {f.name for f in dataclasses.fields(SearcherConfig)} - {"extra"}
+        cfg = SearcherConfig(
+            name=name,
+            metric=raw.get("metric", "loss"),
+            smaller_is_better=bool(raw.get("smaller_is_better", True)),
+            max_length=Length.from_dict(raw["max_length"]) if "max_length" in raw else None,
+            max_trials=int(raw.get("max_trials", 1)),
+            max_time=raw.get("max_time"),
+            num_rungs=int(raw.get("num_rungs", 5)),
+            divisor=int(raw.get("divisor", 4)),
+            max_concurrent_trials=int(raw.get("max_concurrent_trials", 16)),
+            mode=raw.get("mode", "standard"),
+            bracket_rungs=raw.get("bracket_rungs"),
+            stop_once=bool(raw.get("stop_once", False)),
+            extra={k: v for k, v in raw.items() if k not in known},
+        )
+        cfg.validate()
+        return cfg
 
+    def validate(self) -> None:
+        if self.name in ("random", "grid", "asha", "adaptive_asha") and self.max_trials < 1:
+            raise ConfigError(f"searcher.max_trials must be >= 1, got {self.max_trials}")
+        if self.name in ("asha", "adaptive_asha"):
+            if self.divisor < 2:
+                raise ConfigError(f"searcher.divisor must be >= 2, got {self.divisor}")
+            if self.num_rungs < 1:
+                raise ConfigError(f"searcher.num_rungs must be >= 1, got {self.num_rungs}")
+        if self.name == "adaptive_asha" and self.mode not in (
+            "aggressive", "standard", "conservative",
+        ):
+            raise ConfigError(f"unknown adaptive_asha mode {self.mode!r}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "name": self.name,
+            "metric": self.metric,
+            "smaller_is_better": self.smaller_is_better,
+        }
+        if self.max_length is not None:
+            d["max_length"] = self.max_length.to_dict()
+        if self.name in ("random", "grid", "asha", "adaptive_asha"):
+            d["max_trials"] = self.max_trials
+        if self.name in ("asha", "adaptive_asha"):
+            d.update(
+                max_time=self.max_time, num_rungs=self.num_rungs, divisor=self.divisor,
+                max_concurrent_trials=self.max_concurrent_trials, stop_once=self.stop_once,
+            )
+        if self.name == "adaptive_asha":
+            d["mode"] = self.mode
+        d.update(self.extra)
+        return d
+
+
+# ---------------------------------------------------------------------------
+# Resources (slots per trial: ranks, one card each; the topology fields
+# are the JAX package's and are kept so either package reads the other's
+# configs)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class ResourcesConfig:
-    slots_per_trial: int = 1
+    slots_per_trial: int = 1            # ranks per trial (gang size)
+    topology: Optional[str] = None      # e.g. "v5e-8", "2x4"; None = any fit
+    slices: int = 1                     # multislice: gang N whole slices
+                                        # (DCN between them); topology is
+                                        # then the per-slice shape
+    resource_pool: str = "default"
+    priority: Optional[int] = None      # priority-scheduler weight
+    max_slots: Optional[int] = None     # cap across concurrent trials
 
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "ResourcesConfig":
-        raw = _mapping(raw, "resources")
-        _known(raw, _RESOURCES_KEYS, "resources")
-        slots = _int(raw, "slots_per_trial", 1, "resources")
-        if slots < 0:
+        topo = raw.get("topology")
+        slices = 1
+        if isinstance(topo, dict):
+            slices = int(topo.get("slices", 1))
+            topo = topo.get("slice_shape")
+        cfg = ResourcesConfig(
+            slots_per_trial=int(raw.get("slots_per_trial", 1)),
+            topology=topo,
+            slices=slices,
+            resource_pool=raw.get("resource_pool", "default"),
+            priority=int(raw["priority"]) if raw.get("priority") is not None else None,
+            max_slots=raw.get("max_slots"),
+        )
+        if cfg.slices < 1:
             raise ConfigError(
-                f"resources.slots_per_trial must be >= 0, got {slots}")
-        return ResourcesConfig(slots_per_trial=slots)
+                f"resources.topology.slices must be >= 1, got {cfg.slices}")
+        if cfg.slices > 1 and (cfg.slots_per_trial < cfg.slices
+                               or cfg.slots_per_trial % cfg.slices != 0):
+            raise ConfigError(
+                f"slots_per_trial ({cfg.slots_per_trial}) must divide evenly "
+                f"into {cfg.slices} slices (at least one chip per slice)")
+        if cfg.slots_per_trial < 0:
+            raise ConfigError(f"resources.slots_per_trial must be >= 0, got {cfg.slots_per_trial}")
+        if cfg.priority is not None and not (1 <= int(cfg.priority) <= 99):
+            raise ConfigError("resources.priority must be in [1, 99]")
+        return cfg
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {k: v for k, v in dataclasses.asdict(self).items()
+             if v is not None}
+        if d.pop("slices", 1) > 1:
+            # round-trip the multislice object form the master parses
+            d["topology"] = {"slices": self.slices,
+                            "slice_shape": self.topology}
+            if self.topology is None:
+                d["topology"].pop("slice_shape")
+        return d
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint storage union (reference: expconf checkpoint_storage_config;
+# harness/determined/common/storage backends)
+# ---------------------------------------------------------------------------
+
+_STORAGE_TYPES = {"shared_fs", "directory", "gcs", "s3", "azure", "cas"}
+_PORTED_STORAGE = {"shared_fs", "directory"}
+_ROADMAP_STORAGE = "ROADMAP.md, Queue 1: the cloud storage managers"
 
 
 @dataclasses.dataclass
 class CheckpointStorageConfig:
     type: str = "shared_fs"
     host_path: Optional[str] = None       # shared_fs
-    storage_path: Optional[str] = None    # shared_fs subdirectory
+    storage_path: Optional[str] = None    # shared_fs subdir / directory path
     container_path: Optional[str] = None  # directory
+    bucket: Optional[str] = None          # gcs / s3
+    prefix: Optional[str] = None          # gcs / s3 / azure
+    container: Optional[str] = None       # azure blob container
+    connection_string: Optional[str] = None  # azure
+    save_experiment_best: int = 0
+    save_trial_best: int = 1
+    save_trial_latest: int = 1
+    # content-addressed store (type: cas) — all default None so non-cas
+    # configs round-trip byte-identically through to_dict
+    chunk_size_kb: Optional[int] = None
+    cache_path: Optional[str] = None
+    cache_size_mb: Optional[int] = None
+    transfer_workers: Optional[int] = None
+    inner: Optional["CheckpointStorageConfig"] = None
 
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "CheckpointStorageConfig":
-        raw = _mapping(raw, "checkpoint_storage")
-        t = raw.get("type")
+        t = raw.get("type", "shared_fs")
         if t not in _STORAGE_TYPES:
-            raise ConfigError(f"unknown checkpoint_storage.type {t!r}; "
-                              f"expected one of {sorted(_STORAGE_TYPES)}")
+            raise ConfigError(
+                f"unknown checkpoint_storage.type {t!r}; expected one of {sorted(_STORAGE_TYPES)}"
+            )
+        inner = None
+        if t == "cas":
+            inner_raw = raw.get("inner")
+            if inner_raw is None:
+                # flat convenience form: `type: cas` + a shared_fs/directory
+                # path — synthesize the inner backend block
+                if raw.get("host_path"):
+                    inner_raw = {"type": "shared_fs",
+                                 "host_path": raw["host_path"],
+                                 "storage_path": raw.get("storage_path")}
+                    inner_raw = {k: v for k, v in inner_raw.items()
+                                 if v is not None}
+                elif raw.get("container_path"):
+                    inner_raw = {"type": "directory",
+                                 "container_path": raw["container_path"]}
+                else:
+                    raise ConfigError(
+                        "checkpoint_storage type 'cas' needs an 'inner' "
+                        "backend block (or a flat host_path/container_path)")
+            if inner_raw.get("type") == "cas":
+                raise ConfigError(
+                    "checkpoint_storage.inner cannot itself be 'cas'")
+            inner = CheckpointStorageConfig.from_dict(inner_raw)
+        cfg = CheckpointStorageConfig(
+            type=t,
+            host_path=raw.get("host_path"),
+            storage_path=raw.get("storage_path"),
+            container_path=raw.get("container_path"),
+            bucket=raw.get("bucket"),
+            prefix=raw.get("prefix"),
+            container=raw.get("container"),
+            connection_string=raw.get("connection_string"),
+            save_experiment_best=int(raw.get("save_experiment_best", 0)),
+            save_trial_best=int(raw.get("save_trial_best", 1)),
+            save_trial_latest=int(raw.get("save_trial_latest", 1)),
+            chunk_size_kb=(int(raw["chunk_size_kb"])
+                           if raw.get("chunk_size_kb") is not None else None),
+            cache_path=raw.get("cache_path"),
+            cache_size_mb=(int(raw["cache_size_mb"])
+                           if raw.get("cache_size_mb") is not None else None),
+            transfer_workers=(int(raw["transfer_workers"])
+                              if raw.get("transfer_workers") is not None
+                              else None),
+            inner=inner,
+        )
+        if t == "shared_fs" and not cfg.host_path:
+            raise ConfigError("checkpoint_storage.host_path is required for shared_fs storage")
+        if t == "directory" and not cfg.container_path:
+            raise ConfigError(
+                "checkpoint_storage.container_path is required for directory storage"
+            )
+        if t in ("gcs", "s3") and not cfg.bucket:
+            raise ConfigError(f"checkpoint_storage.bucket is required for {t} storage")
+        if t == "azure" and not cfg.container:
+            raise ConfigError(
+                "checkpoint_storage.container is required for azure storage"
+            )
+        if cfg.chunk_size_kb is not None and cfg.chunk_size_kb < 1:
+            raise ConfigError(
+                f"checkpoint_storage.chunk_size_kb must be >= 1, "
+                f"got {cfg.chunk_size_kb}")
+        if cfg.cache_size_mb is not None and cfg.cache_size_mb < 1:
+            raise ConfigError(
+                f"checkpoint_storage.cache_size_mb must be >= 1, "
+                f"got {cfg.cache_size_mb}")
+        if cfg.transfer_workers is not None and cfg.transfer_workers < 0:
+            raise ConfigError(
+                f"checkpoint_storage.transfer_workers must be >= 0, "
+                f"got {cfg.transfer_workers}")
         if t not in _PORTED_STORAGE:
             raise NotImplementedError(
                 f"checkpoint_storage.type {t!r} is not ported yet "
                 f"({_ROADMAP_STORAGE}); use shared_fs or directory")
-        cfg = CheckpointStorageConfig(
-            type=t, host_path=raw.get("host_path"),
-            storage_path=raw.get("storage_path"),
-            container_path=raw.get("container_path"))
-        if t == "shared_fs" and not cfg.host_path:
-            raise ConfigError("checkpoint_storage.host_path is required for "
-                              "shared_fs storage")
-        if t == "directory" and not cfg.container_path:
-            raise ConfigError("checkpoint_storage.container_path is "
-                              "required for directory storage")
         return cfg
 
+    def to_dict(self) -> Dict[str, Any]:
+        d = {k: v for k, v in dataclasses.asdict(self).items()
+             if v is not None and k != "inner"}
+        if self.inner is not None:
+            d["inner"] = self.inner.to_dict()
+        return d
+
+
+# ---------------------------------------------------------------------------
+# Optimizations (reference: expconf OptimizationsConfig — there it tunes
+# horovod aggregation; here it tunes the training loop: input prefetch and
+# steps per dispatch)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class OptimizationsConfig:
@@ -182,189 +313,34 @@ class OptimizationsConfig:
 
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "OptimizationsConfig":
-        # other keys are the legacy (horovod-era) knobs, which the JAX
-        # package's shim drops: ignored here too
-        raw = _mapping(raw, "optimizations")
+        if not isinstance(raw, dict):
+            raise ConfigError(f"optimizations must be a mapping, got {raw!r}")
         cfg = OptimizationsConfig(
-            prefetch_depth=_int(raw, "prefetch_depth", 2, "optimizations"),
-            steps_per_dispatch=_int(raw, "steps_per_dispatch", 1,
-                                    "optimizations"))
-        if cfg.prefetch_depth < 0:
-            raise ConfigError(f"optimizations.prefetch_depth must be >= 0, "
-                              f"got {cfg.prefetch_depth}")
-        if cfg.steps_per_dispatch < 1:
-            raise ConfigError(f"optimizations.steps_per_dispatch must be "
-                              f">= 1, got {cfg.steps_per_dispatch}")
-        return cfg
-
-
-@dataclasses.dataclass
-class FaultsConfig:
-    enabled: bool = True
-    seed: int = 0
-    rules: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
-
-    @staticmethod
-    def from_dict(raw: Dict[str, Any]) -> "FaultsConfig":
-        raw = _mapping(raw, "faults")
-        _known(raw, {"enabled", "seed", "rules"}, "faults")
-        cfg = FaultsConfig(enabled=bool(raw.get("enabled", True)),
-                           seed=_int(raw, "seed", 0, "faults"),
-                           rules=[dict(r) for r in raw.get("rules") or []])
-        for i, rule in enumerate(cfg.rules):
-            where = f"faults.rules[{i}]"
-            _known(rule, _FAULT_RULE_KEYS, where)
-            if not rule.get("point"):
-                raise ConfigError(f"{where} requires a `point`")
-            if rule.get("action", "error") not in _FAULT_ACTIONS:
-                raise ConfigError(f"{where}.action must be one of "
-                                  f"{_FAULT_ACTIONS}, got {rule['action']!r}")
-            if rule.get("exc", "fault") not in _FAULT_EXCS:
-                raise ConfigError(f"{where}.exc must be one of {_FAULT_EXCS}"
-                                  f", got {rule['exc']!r}")
-            if not 0.0 <= float(rule.get("probability", 1.0)) <= 1.0:
-                raise ConfigError(f"{where}.probability must be in [0, 1]")
-        return cfg
-
-
-@dataclasses.dataclass
-class SpeculativeConfig:
-    """The ``serving.speculative:`` block — draft-model speculative
-    decoding. The draft GPT shares the target's vocabulary and
-    max_seq_len; only its depth and widths are chosen here. Greedy output
-    equals plain decode whatever the draft — a bad draft costs speed."""
-    enabled: bool = False
-    k: int = 4                      # draft tokens proposed per iteration
-    draft_layers: int = 1
-    draft_d_model: int = 128
-    draft_n_heads: int = 2
-    draft_d_ff: int = 512
-
-    @staticmethod
-    def from_dict(raw: Dict[str, Any]) -> "SpeculativeConfig":
-        if not isinstance(raw, dict):
-            raise ConfigError(
-                f"serving.speculative must be a mapping, got {raw!r}")
-        cfg = SpeculativeConfig(
-            enabled=bool(raw.get("enabled", False)),
-            k=int(raw.get("k", 4)),
-            draft_layers=int(raw.get("draft_layers", 1)),
-            draft_d_model=int(raw.get("draft_d_model", 128)),
-            draft_n_heads=int(raw.get("draft_n_heads", 2)),
-            draft_d_ff=int(raw.get("draft_d_ff", 512)),
+            prefetch_depth=int(raw.get("prefetch_depth", 2)),
+            steps_per_dispatch=int(raw.get("steps_per_dispatch", 1)),
         )
         cfg.validate()
         return cfg
 
     def validate(self) -> None:
-        if not 1 <= self.k <= 16:
+        if self.prefetch_depth < 0:
             raise ConfigError(
-                f"serving.speculative.k must be in [1, 16], got {self.k}")
-        for name, v in (("draft_layers", self.draft_layers),
-                        ("draft_d_model", self.draft_d_model),
-                        ("draft_n_heads", self.draft_n_heads),
-                        ("draft_d_ff", self.draft_d_ff)):
-            if v < 1:
-                raise ConfigError(
-                    f"serving.speculative.{name} must be >= 1, got {v}")
-        if self.draft_d_model % self.draft_n_heads:
+                f"optimizations.prefetch_depth must be >= 0, "
+                f"got {self.prefetch_depth}")
+        if self.steps_per_dispatch < 1:
             raise ConfigError(
-                f"serving.speculative.draft_d_model "
-                f"{self.draft_d_model} must divide by draft_n_heads "
-                f"{self.draft_n_heads}")
-
-
-@dataclasses.dataclass
-class ServingConfig:
-    """The ``serving:`` block: the engine's shape and capacity contract
-    (buckets bound the program count, KV blocks bound concurrent
-    context, queue depth is the admission valve) and its speed
-    features."""
-    max_batch: int = 8              # largest (pow2) batch bucket
-    max_prefill_len: int = 128      # largest (pow2) prompt-length bucket
-    kv_block_size: int = 16         # KV pool block size (pow2 positions)
-    kv_blocks: int = 0              # pool blocks; 0 = size for max_batch
-    max_queue_depth: int = 64       # admission valve → 429/ServerOverloaded
-    default_max_new_tokens: int = 64
-    host: str = "127.0.0.1"
-    port: int = 8191
-    prefix_cache: bool = False      # copy-on-write prompt-prefix sharing
-    chunk_prefill_len: int = 0      # 0 = off; else a prefill bucket size
-    speculative: SpeculativeConfig = dataclasses.field(
-        default_factory=SpeculativeConfig)
-
-    @staticmethod
-    def from_dict(raw: Dict[str, Any]) -> "ServingConfig":
-        if not isinstance(raw, dict):
-            raise ConfigError(f"serving must be a mapping, got {raw!r}")
-        cfg = ServingConfig(
-            max_batch=int(raw.get("max_batch", 8)),
-            max_prefill_len=int(raw.get("max_prefill_len", 128)),
-            kv_block_size=int(raw.get("kv_block_size", 16)),
-            kv_blocks=int(raw.get("kv_blocks", 0)),
-            max_queue_depth=int(raw.get("max_queue_depth", 64)),
-            default_max_new_tokens=int(raw.get("default_max_new_tokens", 64)),
-            host=str(raw.get("host", "127.0.0.1")),
-            port=int(raw.get("port", 8191)),
-            prefix_cache=bool(raw.get("prefix_cache", False)),
-            chunk_prefill_len=int(raw.get("chunk_prefill_len", 0)),
-            speculative=SpeculativeConfig.from_dict(
-                raw.get("speculative", {})),
-        )
-        cfg.validate()
-        return cfg
-
-    def validate(self) -> None:
-        for name, v in (("max_batch", self.max_batch),
-                        ("max_prefill_len", self.max_prefill_len),
-                        ("kv_block_size", self.kv_block_size)):
-            if v < 1 or v & (v - 1):
-                raise ConfigError(
-                    f"serving.{name} must be a power of two >= 1, got {v}")
-        if self.kv_blocks < 0:
-            raise ConfigError(
-                f"serving.kv_blocks must be >= 0 (0 = auto), "
-                f"got {self.kv_blocks}")
-        if self.max_queue_depth < 1:
-            raise ConfigError(
-                f"serving.max_queue_depth must be >= 1, "
-                f"got {self.max_queue_depth}")
-        if self.default_max_new_tokens < 1:
-            raise ConfigError(
-                f"serving.default_max_new_tokens must be >= 1, "
-                f"got {self.default_max_new_tokens}")
-        if not 0 < self.port < 65536:
-            raise ConfigError(
-                f"serving.port must be in (0, 65536), got {self.port}")
-        if self.chunk_prefill_len < 0:
-            raise ConfigError(
-                f"serving.chunk_prefill_len must be >= 0 (0 = off), "
-                f"got {self.chunk_prefill_len}")
-        if self.chunk_prefill_len:
-            v = self.chunk_prefill_len
-            if (v & (v - 1) or v > self.max_prefill_len
-                    or v < min(8, self.max_prefill_len)):
-                raise ConfigError(
-                    f"serving.chunk_prefill_len must be a power of two "
-                    f"in [{min(8, self.max_prefill_len)}, "
-                    f"{self.max_prefill_len}] (it must land on a prefill "
-                    f"bucket), got {v}")
-        self.speculative.validate()
+                f"optimizations.steps_per_dispatch must be >= 1, "
+                f"got {self.steps_per_dispatch}")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
 
-def _serving(raw: Any) -> ServingConfig:
-    """The ``serving:`` block with its unknown keys refused, as the JAX
-    package's schema refuses them before ``ServingConfig.from_dict``."""
-    raw = _mapping(raw, "serving")
-    _known(raw, _SERVING_KEYS, "serving")
-    spec = raw.get("speculative", {})
-    if isinstance(spec, dict):
-        _known(spec, _SPECULATIVE_KEYS, "serving.speculative")
-    return ServingConfig.from_dict(raw)
-
+# ---------------------------------------------------------------------------
+# Observability (trial-side telemetry: spans, metrics registry, Chrome-trace
+# export — see docs/observability.md; disabled by default so the hot loop
+# stays unwrapped)
+# ---------------------------------------------------------------------------
 
 # the alert-rule vocabulary of the JAX package's telemetry/rules.py
 _RULE_KINDS = ("threshold", "rate_of_change", "burn_rate", "absence")
@@ -442,17 +418,12 @@ def _check_alert_rule(raw: Any) -> None:
 
 @dataclasses.dataclass
 class ObservabilityConfig:
-    """Trial-side telemetry (``telemetry_from_config``): spans, the
-    metrics registry, the Chrome trace, the flight recorder, the goodput
-    journal and the step-time anomaly detector. Disabled by default, so
-    the trainer's hot loop runs unwrapped."""
-
     enabled: bool = False
     max_events: int = 200_000      # span-record cap (head kept, tail dropped)
-    ship_spans: bool = False       # ship span records to the profiler
-    ship_metrics: bool = True      # ship registry snapshots to it
+    ship_spans: bool = False       # ship span records over profiler channel
+    ship_metrics: bool = True      # ship registry snapshots over it
     trace_path: Optional[str] = None  # trace.json destination; None = default
-    # flight recorder (crash black box, telemetry/flight.py); None = off
+    # flight recorder (crash black box — telemetry/flight.py); None = off
     flight_dir: Optional[str] = None
     flight_segment_events: int = 256  # records per segment file
     flight_segments: int = 8          # ring size (oldest deleted)
@@ -463,11 +434,15 @@ class ObservabilityConfig:
     anomaly_window: int = 64       # rolling baseline length
     anomaly_threshold: float = 5.0  # MAD multiples above median to fire
     anomaly_min_samples: int = 16  # warmup before the detector arms
-    # the master's time-series store; None = not enabled
+    # master-side time-series store (telemetry/tsdb.py); None = the
+    # TSDB is not enabled. Keys mirror TimeSeriesDB.from_dict.
     timeseries: Optional[Dict[str, Any]] = None
+    # sources with no ingest for this long are flagged stale in
+    # `dct metrics` output and skipped by the TSDB scrape
     stale_after_s: float = 60.0
-    # declarative alert rules for the master's rule engine
+    # declarative alert rules (telemetry/rules.py AlertRule.from_dict)
     rules: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    # install the two PR-13 burn-rate rules over dct_slo_burn_rate
     stock_slo_rules: bool = False
 
     @staticmethod
@@ -529,6 +504,8 @@ class ObservabilityConfig:
             raise ConfigError(
                 f"observability.stale_after_s must be > 0, "
                 f"got {self.stale_after_s}")
+        # rule semantics (per-kind required fields, thresholds) as the
+        # JAX package's telemetry/rules.py checks them
         for i, rule in enumerate(self.rules):
             try:
                 _check_alert_rule(rule)
@@ -541,179 +518,324 @@ class ObservabilityConfig:
                 if v is not None}
 
 
-# the JAX package's experiment schema for the block (config/schema.py),
-# with its quirks: a rule's ``objective`` is typed a string there
-_NUM, _INT, _STR, _BOOL = ({"type": t} for t in (
-    "number", "integer", "string", "boolean"))
-_OBSERVABILITY_SCHEMA = {
-    "type": "object", "open": False,
-    "properties": {
-        "enabled": _BOOL, "max_events": _INT, "ship_spans": _BOOL,
-        "ship_metrics": _BOOL, "trace_path": _STR, "flight_dir": _STR,
-        "flight_segment_events": _INT, "flight_segments": _INT,
-        "goodput_dir": _STR, "anomaly_window": _INT,
-        "anomaly_threshold": _NUM, "anomaly_min_samples": _INT,
-        "timeseries": {
-            "type": "object", "open": False,
-            "properties": {
-                "enabled": _BOOL, "scrape_period_s": _NUM,
-                "capacity_per_series": _INT, "coarse_step_s": _NUM,
-                "coarse_capacity": _INT, "memory_budget_mb": _NUM,
-                "max_series": _INT, "persist_dir": _STR,
-                "segment_scrapes": _INT, "max_segments": _INT,
-            },
-        },
-        "stale_after_s": _NUM,
-        "rules": {
-            "type": "array",
-            "items": {
-                "type": "object", "open": False,
-                "properties": {
-                    "name": _STR,
-                    "kind": {"type": "string", "enum": list(_RULE_KINDS)},
-                    "series": _STR,
-                    "labels": {"type": "object", "open": True},
-                    "window_s": _NUM, "reduce": _STR,
-                    "op": {"type": "string", "enum": list(_RULE_OPS)},
-                    "value": _NUM, "for_s": _NUM,
-                    "severity": {"type": "string",
-                                 "enum": list(_RULE_SEVERITIES)},
-                    "stale_s": _NUM,
-                    "windows": {"type": "array",
-                                "items": {"anyOf": [_STR, _NUM]}},
-                    "threshold": _NUM, "objective": _STR,
-                    "bad_series": _STR, "total_series": _STR,
-                },
-                "required": ["name", "kind"],
-            },
-        },
-        "stock_slo_rules": _BOOL,
-    },
-}
+# ---------------------------------------------------------------------------
+# Serving (the `serving:` block) — online inference via `dct serve`:
+# continuous batching over a paged KV cache; see docs/serving.md. The knobs
+# are the engine's shape/capacity contract: buckets bound the program
+# count, kv blocks bound concurrent context, queue depth is the admission
+# valve. No reference equivalent (the reference serves only batch jobs).
+# ---------------------------------------------------------------------------
 
+@dataclasses.dataclass
+class SpeculativeConfig:
+    """The ``serving.speculative:`` block — draft-model speculative
+    decoding (docs/serving.md). The draft GPT shares the target's
+    tokenizer/vocab and max_seq_len; only its depth/width are chosen
+    here. Greedy output is bit-identical to plain decode regardless of
+    draft quality — a bad draft only costs speed."""
+    enabled: bool = False
+    k: int = 4                      # draft tokens proposed per iteration
+    draft_layers: int = 1
+    draft_d_model: int = 128
+    draft_n_heads: int = 2
+    draft_d_ff: int = 512
 
-def _type_ok(schema_type: str, value: Any) -> bool:
-    if schema_type == "integer":
-        return isinstance(value, int) and not isinstance(value, bool)
-    if schema_type == "number":
-        return (isinstance(value, (int, float))
-                and not isinstance(value, bool))
-    return isinstance(value, {"string": str, "boolean": bool,
-                              "array": list, "object": dict}[schema_type])
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "SpeculativeConfig":
+        if not isinstance(raw, dict):
+            raise ConfigError(
+                f"serving.speculative must be a mapping, got {raw!r}")
+        cfg = SpeculativeConfig(
+            enabled=bool(raw.get("enabled", False)),
+            k=int(raw.get("k", 4)),
+            draft_layers=int(raw.get("draft_layers", 1)),
+            draft_d_model=int(raw.get("draft_d_model", 128)),
+            draft_n_heads=int(raw.get("draft_n_heads", 2)),
+            draft_d_ff=int(raw.get("draft_d_ff", 512)),
+        )
+        cfg.validate()
+        return cfg
 
-
-def _schema_errors(value: Any, schema: Dict[str, Any], path: str
-                   ) -> List[str]:
-    """The JAX schema validator's errors for ``value`` (the subset of its
-    forms the block uses: types, enums, objects, arrays, anyOf)."""
-    if "anyOf" in schema:
-        attempts = [_schema_errors(value, sub, path)
-                    for sub in schema["anyOf"]]
-        if any(not a for a in attempts):
-            return []
-        return [f"{path}: no alternative matched: " +
-                "; ".join(a[0] for a in attempts if a)]
-    stype = schema["type"]
-    if not _type_ok(stype, value):
-        return [f"{path}: expected {stype}, got {type(value).__name__}"]
-    errors: List[str] = []
-    if "enum" in schema and value not in schema["enum"]:
-        errors.append(f"{path}: expected one of {schema['enum']}, "
-                      f"got {value!r}")
-    if stype == "object":
-        props = schema.get("properties", {})
-        for req in schema.get("required", []):
-            if req not in value:
-                errors.append(f"{path}.{req}: required field missing")
-        for key, sub in value.items():
-            if key in props:
-                errors.extend(_schema_errors(sub, props[key],
-                                             f"{path}.{key}"))
-            elif not schema.get("open", False):
-                errors.append(f"{path}.{key}: unknown field "
-                              f"(known: {sorted(props)})")
-    elif stype == "array" and "items" in schema:
-        for i, item in enumerate(value):
-            errors.extend(_schema_errors(item, schema["items"],
-                                         f"{path}[{i}]"))
-    return errors
-
-
-def _observability(raw: Any) -> ObservabilityConfig:
-    """The ``observability:`` block checked against the JAX package's
-    schema (types, enums, unknown keys) before
-    :meth:`ObservabilityConfig.from_dict`, as the JAX config checks it."""
-    errors = _schema_errors(raw, _OBSERVABILITY_SCHEMA,
-                            "<config>.observability")
-    if errors:
-        raise ConfigError("invalid experiment config:\n  "
-                          + "\n  ".join(errors))
-    return ObservabilityConfig.from_dict(raw)
+    def validate(self) -> None:
+        if not 1 <= self.k <= 16:
+            raise ConfigError(
+                f"serving.speculative.k must be in [1, 16], got {self.k}")
+        for name, v in (("draft_layers", self.draft_layers),
+                        ("draft_d_model", self.draft_d_model),
+                        ("draft_n_heads", self.draft_n_heads),
+                        ("draft_d_ff", self.draft_d_ff)):
+            if v < 1:
+                raise ConfigError(
+                    f"serving.speculative.{name} must be >= 1, got {v}")
+        if self.draft_d_model % self.draft_n_heads:
+            raise ConfigError(
+                f"serving.speculative.draft_d_model "
+                f"{self.draft_d_model} must divide by draft_n_heads "
+                f"{self.draft_n_heads}")
 
 
 @dataclasses.dataclass
+class ServingConfig:
+    max_batch: int = 8              # largest (pow2) batch bucket
+    max_prefill_len: int = 128      # largest (pow2) prompt-length bucket
+    kv_block_size: int = 16         # KV pool block size (pow2 positions)
+    kv_blocks: int = 0              # pool blocks; 0 = size for max_batch
+    max_queue_depth: int = 64       # admission valve → 429/ServerOverloaded
+    default_max_new_tokens: int = 64
+    host: str = "127.0.0.1"
+    port: int = 8191
+    prefix_cache: bool = False      # copy-on-write prompt-prefix sharing
+    chunk_prefill_len: int = 0      # 0 = off; else a prefill bucket size
+    speculative: SpeculativeConfig = dataclasses.field(
+        default_factory=SpeculativeConfig)
+
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "ServingConfig":
+        if not isinstance(raw, dict):
+            raise ConfigError(f"serving must be a mapping, got {raw!r}")
+        cfg = ServingConfig(
+            max_batch=int(raw.get("max_batch", 8)),
+            max_prefill_len=int(raw.get("max_prefill_len", 128)),
+            kv_block_size=int(raw.get("kv_block_size", 16)),
+            kv_blocks=int(raw.get("kv_blocks", 0)),
+            max_queue_depth=int(raw.get("max_queue_depth", 64)),
+            default_max_new_tokens=int(raw.get("default_max_new_tokens", 64)),
+            host=str(raw.get("host", "127.0.0.1")),
+            port=int(raw.get("port", 8191)),
+            prefix_cache=bool(raw.get("prefix_cache", False)),
+            chunk_prefill_len=int(raw.get("chunk_prefill_len", 0)),
+            speculative=SpeculativeConfig.from_dict(
+                raw.get("speculative", {})),
+        )
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        for name, v in (("max_batch", self.max_batch),
+                        ("max_prefill_len", self.max_prefill_len),
+                        ("kv_block_size", self.kv_block_size)):
+            if v < 1 or v & (v - 1):
+                raise ConfigError(
+                    f"serving.{name} must be a power of two >= 1, got {v}")
+        if self.kv_blocks < 0:
+            raise ConfigError(
+                f"serving.kv_blocks must be >= 0 (0 = auto), "
+                f"got {self.kv_blocks}")
+        if self.max_queue_depth < 1:
+            raise ConfigError(
+                f"serving.max_queue_depth must be >= 1, "
+                f"got {self.max_queue_depth}")
+        if self.default_max_new_tokens < 1:
+            raise ConfigError(
+                f"serving.default_max_new_tokens must be >= 1, "
+                f"got {self.default_max_new_tokens}")
+        if not 0 < self.port < 65536:
+            raise ConfigError(
+                f"serving.port must be in (0, 65536), got {self.port}")
+        if self.chunk_prefill_len < 0:
+            raise ConfigError(
+                f"serving.chunk_prefill_len must be >= 0 (0 = off), "
+                f"got {self.chunk_prefill_len}")
+        if self.chunk_prefill_len:
+            v = self.chunk_prefill_len
+            if (v & (v - 1) or v > self.max_prefill_len
+                    or v < min(8, self.max_prefill_len)):
+                raise ConfigError(
+                    f"serving.chunk_prefill_len must be a power of two "
+                    f"in [{min(8, self.max_prefill_len)}, "
+                    f"{self.max_prefill_len}] (it must land on a prefill "
+                    f"bucket), got {v}")
+        self.speculative.validate()
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# Fault injection (the `faults:` block) — a seeded, deterministic FaultPlan
+# for chaos testing; see docs/fault_tolerance.md. No reference equivalent:
+# the reference exercises failure paths with live clusters, we do it by seed.
+# ---------------------------------------------------------------------------
+
+_FAULT_ACTIONS = ("error", "delay", "truncate", "exit")
+_FAULT_EXCS = ("fault", "io", "conn")
+
+
+@dataclasses.dataclass
+class FaultsConfig:
+    enabled: bool = True
+    seed: int = 0
+    rules: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "FaultsConfig":
+        if not isinstance(raw, dict):
+            raise ConfigError(f"faults must be a mapping, got {raw!r}")
+        cfg = FaultsConfig(
+            enabled=bool(raw.get("enabled", True)),
+            seed=int(raw.get("seed", 0)),
+            rules=[dict(r) for r in raw.get("rules") or []],
+        )
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        for i, rule in enumerate(self.rules):
+            if not isinstance(rule, dict) or not rule.get("point"):
+                raise ConfigError(f"faults.rules[{i}] requires a `point`")
+            action = rule.get("action", "error")
+            if action not in _FAULT_ACTIONS:
+                raise ConfigError(
+                    f"faults.rules[{i}].action must be one of "
+                    f"{_FAULT_ACTIONS}, got {action!r}")
+            exc = rule.get("exc", "fault")
+            if exc not in _FAULT_EXCS:
+                raise ConfigError(
+                    f"faults.rules[{i}].exc must be one of "
+                    f"{_FAULT_EXCS}, got {exc!r}")
+            prob = float(rule.get("probability", 1.0))
+            if not 0.0 <= prob <= 1.0:
+                raise ConfigError(
+                    f"faults.rules[{i}].probability must be in [0, 1], "
+                    f"got {prob}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"enabled": self.enabled, "seed": self.seed}
+        if self.rules:
+            d["rules"] = self.rules
+        return d
+
+
+# ---------------------------------------------------------------------------
+# Log policies (reference: expconf log_policies → logpattern subsystem)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LogPolicy:
+    pattern: str
+    action: str = "exclude_node"  # exclude_node | cancel_retries
+
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "LogPolicy":
+        if "pattern" not in raw:
+            raise ConfigError("log policy requires a `pattern`")
+        action = raw.get("action", "exclude_node")
+        if isinstance(action, dict):  # reference's {"type": "..."} form
+            action = action.get("type", "exclude_node")
+        if action not in ("exclude_node", "cancel_retries"):
+            raise ConfigError(f"unknown log policy action {action!r}")
+        return LogPolicy(pattern=raw["pattern"], action=action)
+
+
+# ---------------------------------------------------------------------------
+# The experiment config itself
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
 class ExperimentConfig:
-    searcher: SearcherConfig = dataclasses.field(
-        default_factory=SearcherConfig)
-    resources: ResourcesConfig = dataclasses.field(
-        default_factory=ResourcesConfig)
-    hyperparameters: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    name: str = "unnamed-experiment"
+    entrypoint: Optional[str] = None
+    searcher: SearcherConfig = dataclasses.field(default_factory=SearcherConfig)
+    resources: ResourcesConfig = dataclasses.field(default_factory=ResourcesConfig)
+    hyperparameters: HyperparameterSpace = dataclasses.field(
+        default_factory=HyperparameterSpace
+    )
     checkpoint_storage: Optional[CheckpointStorageConfig] = None
     optimizations: OptimizationsConfig = dataclasses.field(
-        default_factory=OptimizationsConfig)
-    faults: Optional[FaultsConfig] = None
-    serving: Optional[ServingConfig] = None
+        default_factory=OptimizationsConfig
+    )
     observability: ObservabilityConfig = dataclasses.field(
-        default_factory=ObservabilityConfig)
+        default_factory=ObservabilityConfig
+    )
+    serving: Optional[ServingConfig] = None
+    faults: Optional[FaultsConfig] = None
     checkpoint_policy: str = "best"     # best | all | none
     min_validation_period: Optional[Length] = None
     min_checkpoint_period: Optional[Length] = None
+    perform_initial_validation: bool = False
+    max_restarts: int = 5
     records_per_epoch: int = 0
     scheduling_unit: int = 100          # batches per searcher unit
     experiment_seed: int = 0            # reproducibility.experiment_seed
+    labels: List[str] = dataclasses.field(default_factory=list)
+    workspace: str = "Uncategorized"
+    project: str = "Uncategorized"
+    log_policies: List[LogPolicy] = dataclasses.field(default_factory=list)
+    profiling_enabled: bool = False
+    environment: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    data: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # what the v0->v1 shim rewrote (surfaced as deprecation notices)
+    deprecations: List[str] = dataclasses.field(default_factory=list)
 
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "ExperimentConfig":
         if not isinstance(raw, dict):
-            raise ConfigError(f"experiment config must be a mapping, got "
-                              f"{type(raw).__name__}")
-        _known(raw, _TOP_LEVEL, "<config>")
-        repro = _mapping(raw.get("reproducibility") or {}, "reproducibility")
-        _known(repro, {"experiment_seed"}, "reproducibility")
-        hparams = raw.get("hyperparameters") or {}
+            raise ConfigError(f"experiment config must be a mapping, got {type(raw).__name__}")
+        # schema-first pipeline (≈ expconf parse.go): shim legacy (v0)
+        # spellings to the current version, then validate against the
+        # schema-as-data before the dataclass layer parses values
+        from determined_clone_tpu_torch.config import schema as schema_mod
+        from determined_clone_tpu_torch.config import shims
+
+        try:
+            raw, deprecations = shims.shim(raw)
+        except ValueError as e:
+            raise ConfigError(str(e)) from None
+        errors = schema_mod.validate(raw)
+        if errors:
+            raise ConfigError("invalid experiment config:\n  " +
+                              "\n  ".join(errors))
+        profiling = raw.get("profiling", {})
         cfg = ExperimentConfig(
+            name=raw.get("name", "unnamed-experiment"),
+            entrypoint=raw.get("entrypoint"),
             searcher=SearcherConfig.from_dict(raw.get("searcher", {})),
             resources=ResourcesConfig.from_dict(raw.get("resources", {})),
-            hyperparameters=_mapping(hparams, "hyperparameters"),
+            hyperparameters=HyperparameterSpace(raw.get("hyperparameters", {})),
             checkpoint_storage=(
                 CheckpointStorageConfig.from_dict(raw["checkpoint_storage"])
-                if raw.get("checkpoint_storage") else None),
+                if raw.get("checkpoint_storage") else None
+            ),
             optimizations=OptimizationsConfig.from_dict(
-                raw.get("optimizations") or {}),
+                raw.get("optimizations") or {}
+            ),
+            observability=ObservabilityConfig.from_dict(
+                raw.get("observability") or {}
+            ),
+            serving=(ServingConfig.from_dict(raw["serving"])
+                     if raw.get("serving") else None),
             faults=(FaultsConfig.from_dict(raw["faults"])
                     if raw.get("faults") else None),
-            serving=(_serving(raw["serving"]) if raw.get("serving")
-                     else None),
-            observability=(_observability(raw["observability"])
-                           if "observability" in raw
-                           else ObservabilityConfig()),
             checkpoint_policy=raw.get("checkpoint_policy", "best"),
             min_validation_period=(
-                _length(raw["min_validation_period"], "min_validation_period")
-                if "min_validation_period" in raw else None),
+                Length.from_dict(raw["min_validation_period"])
+                if "min_validation_period" in raw else None
+            ),
             min_checkpoint_period=(
-                _length(raw["min_checkpoint_period"], "min_checkpoint_period")
-                if "min_checkpoint_period" in raw else None),
-            records_per_epoch=_int(raw, "records_per_epoch", 0, "<config>"),
-            scheduling_unit=_int(raw, "scheduling_unit", 100, "<config>"),
-            experiment_seed=_int(repro, "experiment_seed", 0,
-                                 "reproducibility"))
-        if cfg.checkpoint_policy not in ("best", "all", "none"):
-            raise ConfigError(f"checkpoint_policy must be best|all|none, got "
-                              f"{cfg.checkpoint_policy!r}")
-        if cfg.scheduling_unit < 1:
-            raise ConfigError(f"scheduling_unit must be >= 1, got "
-                              f"{cfg.scheduling_unit}")
+                Length.from_dict(raw["min_checkpoint_period"])
+                if "min_checkpoint_period" in raw else None
+            ),
+            perform_initial_validation=bool(raw.get("perform_initial_validation", False)),
+            max_restarts=int(raw.get("max_restarts", 5)),
+            records_per_epoch=int(raw.get("records_per_epoch", 0)),
+            scheduling_unit=int(raw.get("scheduling_unit", 100)),
+            experiment_seed=int(
+                (raw.get("reproducibility") or {}).get("experiment_seed", 0)
+            ),
+            labels=list(raw.get("labels", []) or []),
+            workspace=raw.get("workspace", "Uncategorized"),
+            project=raw.get("project", "Uncategorized"),
+            log_policies=[LogPolicy.from_dict(p) for p in raw.get("log_policies", []) or []],
+            profiling_enabled=bool(
+                profiling.get("enabled", False) if isinstance(profiling, dict) else profiling
+            ),
+            environment=raw.get("environment", {}) or {},
+            data=raw.get("data", {}) or {},
+            raw=raw,
+            deprecations=deprecations,
+        )
+        cfg.validate()
         return cfg
 
     @staticmethod
@@ -722,3 +844,63 @@ class ExperimentConfig:
 
         with open(path) as f:
             return ExperimentConfig.from_dict(yaml.safe_load(f) or {})
+
+    def validate(self) -> None:
+        if self.checkpoint_policy not in ("best", "all", "none"):
+            raise ConfigError(
+                f"checkpoint_policy must be best|all|none, got {self.checkpoint_policy!r}"
+            )
+        if self.max_restarts < 0:
+            raise ConfigError(f"max_restarts must be >= 0, got {self.max_restarts}")
+        if self.scheduling_unit < 1:
+            raise ConfigError(f"scheduling_unit must be >= 1, got {self.scheduling_unit}")
+        if self.searcher.name == "grid" and self.hyperparameters.grid_size() == 0:
+            # a grid over an empty space is a single trial; allowed, like the reference
+            pass
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "name": self.name,
+            "searcher": self.searcher.to_dict(),
+            "resources": self.resources.to_dict(),
+            "hyperparameters": self.hyperparameters.raw,
+            "checkpoint_policy": self.checkpoint_policy,
+            "max_restarts": self.max_restarts,
+            "records_per_epoch": self.records_per_epoch,
+            "scheduling_unit": self.scheduling_unit,
+            "reproducibility": {"experiment_seed": self.experiment_seed},
+            "labels": self.labels,
+            "workspace": self.workspace,
+            "project": self.project,
+        }
+        if self.entrypoint:
+            d["entrypoint"] = self.entrypoint
+        if self.checkpoint_storage:
+            d["checkpoint_storage"] = self.checkpoint_storage.to_dict()
+        if self.optimizations != OptimizationsConfig():
+            d["optimizations"] = self.optimizations.to_dict()
+        if self.observability != ObservabilityConfig():
+            d["observability"] = self.observability.to_dict()
+        if self.serving is not None:
+            d["serving"] = self.serving.to_dict()
+        if self.faults is not None:
+            d["faults"] = self.faults.to_dict()
+        if self.min_validation_period:
+            d["min_validation_period"] = self.min_validation_period.to_dict()
+        if self.min_checkpoint_period:
+            d["min_checkpoint_period"] = self.min_checkpoint_period.to_dict()
+        if self.data:
+            d["data"] = self.data
+        return d
+
+
+def merge_configs(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
+    """Template merging (reference: master/internal/templates + schemas.Merge):
+    override wins per key; nested dicts merge recursively; lists replace."""
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = merge_configs(out[k], v)
+        else:
+            out[k] = v
+    return out

@@ -26,13 +26,16 @@ are all-gathered per layer (FSDP); ``tp`` splits the heads (the flash
 kernel runs on the rank's own heads), the MLP width and the vocabulary
 (a vocab-parallel embedding and cross-entropy, whose logsumexp spans
 ``tp``); ``ep`` splits the experts; the loss is the global batch's.
-Over ``pp`` with the blocks placed by ``GPT_PP_SHARDING_RULES`` the
+Over ``pp`` with the blocks placed by ``GPT_PP_SHARDING_RULES``, or
+with ``pipeline_microbatches`` above 1 (blocks not split over ``pp`` are
+then cut to each stage's layers, as the JAX program reshards them), the
 stack runs as a GPipe pipeline (``parallel/pipeline.py``): each rank
 runs its stage's layers on ``pipeline_microbatches`` microbatches of its
 rows. Over ``sp`` each rank takes its block of the sequence (the tokens
 may come split by ``TOKENS_SPEC`` or whole), with global rotary
 positions, and attends through ``ring_attention``; the loss's token mean
-spans ``sp``.
+spans ``sp``, and the MoE routes the global token array
+(``ops/moe.py``).
 """
 from __future__ import annotations
 
@@ -523,10 +526,6 @@ def _forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
     :func:`_remat_policy`."""
     sp = spmd_of(params["embed"]["table"])
     tokens = _seq_block(tokens, sp)
-    if sp is not None and sp.sp > 1 and cfg.moe_experts > 0:
-        raise ValueError("the MoE GPT over an 'sp' axis above 1 is not "
-                         "ported: its routing counts whole rows (ROADMAP.md,"
-                         " Queue 3: the MoE GPT over sp)")
     T = tokens.shape[1]
     first = 0 if sp is None else sp.sp_rank * T   # global positions
     positions = torch.arange(first, first + T, device=tokens.device)
@@ -535,14 +534,11 @@ def _forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor, *,
     if training and dropout_seed is not None and cfg.dropout > 0.0:
         seeds = [fold_seed(dropout_seed, i) for i in range(cfg.n_layers)]
     remat = cfg.remat and torch.is_grad_enabled()
-    if split_over(params["blocks"]["ln1"]["scale"], "pp", 0):
+    if split_over(params["blocks"]["ln1"]["scale"], "pp", 0) or (
+            sp is not None and sp.pp > 1 and cfg.pipeline_microbatches > 1):
+        # blocks not split over pp are cut to the stage's layers there
         x, aux_total = _pipelined(params, cfg, x, positions, seeds, sp,
                                   remat)
-    elif sp is not None and sp.pp > 1 and cfg.pipeline_microbatches > 1:
-        raise ValueError(
-            f"pipeline_microbatches={cfg.pipeline_microbatches} over pp="
-            f"{sp.pp} needs the blocks split over 'pp': place the params "
-            f"by GPT_PP_SHARDING_RULES")
     else:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, seed in enumerate(seeds):

@@ -20,10 +20,12 @@ them under its gates. Shapes stay static (dropped choices point at a
 scratch slot), so the paged forward can be captured in a CUDA graph.
 
 Over a mesh (``comm``, a ``parallel.spmd.SpmdContext``) the routing is
-the JAX program's on the global batch: a token's slot counts the tokens
-of the batch blocks before its own (an exclusive prefix over an
-all-gather of per-block counts), C comes from the global N, and the aux
-loss's means run over every block. Under ``ep`` each rank runs its own
+the JAX program's on the global token array, whose order runs row by row
+and, within a row, by ``sp`` rank: a token's slot counts the tokens of
+the batch blocks before its own, of the earlier rows of its block on
+every ``sp`` rank, and of its own row on the lower ``sp`` ranks (prefixes
+over all-gathered counts per row), C comes from the global N, and the aux
+loss's means run over every token. Under ``ep`` each rank runs its own
 experts and all-gathers their outputs; under ``tp`` each expert's FFN
 width is split, its down projection summed across ``tp``.
 """
@@ -64,17 +66,17 @@ def expert_capacity(n_tokens: int, n_experts: int,
 class LocalComm:
     """The one-rank ``comm``: every batch block is this one, every expert
     and the whole FFN width are local."""
-    batch_shards = 1
+    token_shards = 1
     ep = tp = 1
     ep_rank = tp_rank = 0
 
-    def token_offsets(self, counts):
-        return torch.zeros_like(counts), counts
+    def token_offsets(self, row_counts):
+        return torch.zeros_like(row_counts), row_counts.sum(0)
 
-    def batch_sum(self, x):
+    def token_sum(self, x):
         return x
 
-    def batch_sum_(self, x):
+    def token_sum_(self, x):
         return x
 
     def to_experts(self, x):
@@ -116,8 +118,8 @@ def _aux_loss(probs, top_idx, E, n_global, comm) -> torch.Tensor:
     """Switch load-balancing loss over first choices: the dispatch
     fractions ``f`` and mean router probabilities ``P`` of the global
     batch."""
-    f = comm.batch_sum_(_one_hot(top_idx[:, 0], E).float().sum(0)) / n_global
-    p = comm.batch_sum(probs.sum(0)) / n_global
+    f = comm.token_sum_(_one_hot(top_idx[:, 0], E).float().sum(0)) / n_global
+    p = comm.token_sum(probs.sum(0)) / n_global
     return E * (f * p).sum()
 
 
@@ -135,7 +137,7 @@ def moe_ffn(params: Params, x: torch.Tensor, *, k: int = 2,
     B, T, D = x.shape
     N = B * T
     E = params["router"]["kernel"].shape[-1]
-    n_global = N * comm.batch_shards
+    n_global = N * comm.token_shards
     C = expert_capacity(n_global, E, capacity_factor)
     k = min(k, E)
     E_loc = params["up"]["kernel"].shape[0]
@@ -146,10 +148,13 @@ def moe_ffn(params: Params, x: torch.Tensor, *, k: int = 2,
 
     with torch.no_grad():
         onehot = _one_hot(top_idx, E)                           # [N, k, E]
-        counts = onehot.sum(0)                                  # [k, E]
-        before, total = comm.token_offsets(counts)
+        row_counts = onehot.reshape(B, T, k, E).sum(1)          # [B, k, E]
+        counts = row_counts.sum(0)                              # [k, E]
+        # per row: the tokens before it elsewhere in the global order
+        before, total = comm.token_offsets(row_counts)
         # slots claimed by earlier choices, globally and on this block
-        g_base = torch.cumsum(total, 0) - total + before        # [k, E]
+        g_base = (torch.cumsum(total, 0) - total)[None] + before
+        g_base = g_base[:, None].expand(B, T, k, E).reshape(N, k, E)
         l_base = torch.cumsum(counts, 0) - counts
         # scanned along the last dim of the transpose: scans down the
         # 8192 rows took 31.6 ms of a 432 ms MoE GPT step on an H100

@@ -71,9 +71,12 @@ def pipeline_apply(stage_fn: StageFn, stacked_params: Any, x: Any, *,
     layers (``SpmdContext.local(..., index=j)`` reads layer j of them
     and gathers its other sharded dims). A plain tensor leaf holds all
     L layers on every rank and is cut to the stage's block, its gradient
-    summed over pp. ``x`` is this rank's carrier (its rows of the
-    batch), a tree whose every leaf has a leading batch dim divisible by
-    ``num_microbatches``; microbatch m is the m-th block of those rows.
+    summed over pp; so is a DTensor leaf not split over pp, after it is
+    gathered whole over the axes that shard it (its stage block reaches
+    ``stage_fn`` as a plain tensor). ``x`` is this rank's carrier (its
+    rows of the batch), a tree whose every leaf has a leading batch dim
+    divisible by ``num_microbatches``; microbatch m is the m-th block of
+    those rows.
 
     ``mesh`` is the DeviceMesh; at pp size 1 ``stage_fn`` runs directly
     on all of ``x``.
@@ -103,12 +106,11 @@ def pipeline_apply(stage_fn: StageFn, stacked_params: Any, x: Any, *,
                 f"the {axis_name!r} axis size {n_stages}")
         if split_over(leaf, axis_name, 0):
             return leaf
-        if hasattr(leaf, "placements"):
-            raise ValueError(
-                f"stacked leaf {_keystr(path)} is a DTensor not split over "
-                f"{axis_name!r} on its layer dim; place it by "
-                f"pipeline_stage_spec() (the GPT: GPT_PP_SHARDING_RULES)")
-        return sp.copy_to(leaf, axis_name).chunk(n_stages, 0)[stage]
+        # a DTensor not split over pp is made whole over the axes that
+        # shard it (its gradient summed back onto its shard) and cut like
+        # a plain tensor, as the JAX program reshards the stack
+        return sp.copy_to(sp.whole(leaf), axis_name).chunk(n_stages,
+                                                           0)[stage]
 
     local = tree_map_with_path(stage_slice, stacked_params)
     # stage 0 alone reads the input: summing its cotangent over pp gives

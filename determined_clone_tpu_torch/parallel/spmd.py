@@ -251,6 +251,8 @@ class SpmdContext:
         self.ep, self.ep_rank = self.sizes.get("ep", 1), self.coord.get("ep", 0)
         self.pp, self.pp_rank = self.sizes.get("pp", 1), self.coord.get("pp", 0)
         self.sp, self.sp_rank = self.sizes.get("sp", 1), self.coord.get("sp", 0)
+        # the blocks of the global token array: batch blocks times sp's
+        self.token_shards = self.batch_shards * self.sp
 
     # -- collectives ---------------------------------------------------------
 
@@ -437,13 +439,36 @@ class SpmdContext:
 
     # -- the MoE routing's protocol (ops/moe.py) -----------------------------
 
-    def token_offsets(self, counts: torch.Tensor
+    def token_offsets(self, row_counts: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(the counts of the batch blocks before this one, the total)."""
+        """``row_counts`` [B, ...]: this rank's counts per local row. The
+        global token order runs row by row and, within a row, by ``sp``
+        rank. Returns (per row, the counts of the tokens before this
+        rank's part of it that the rank's own earlier rows do not hold —
+        the batch blocks before this one, the other ``sp`` ranks' part of
+        the earlier rows, the lower ``sp`` ranks' part of this row; the
+        global total)."""
+        counts = row_counts.sum(0)
+        within = torch.zeros_like(row_counts)
+        if self.sp > 1:
+            rows = _all_gather(row_counts[None], 0, self.groups["sp"],
+                               self.sp)                       # [sp, B, ...]
+            whole = rows.sum(0)
+            within = (torch.cumsum(whole, 0) - whole
+                      - (torch.cumsum(row_counts, 0) - row_counts)
+                      + rows[:self.sp_rank].sum(0))
+            counts = whole.sum(0)
         if self.batch_shards == 1:
-            return torch.zeros_like(counts), counts
+            return within, counts
         every = self.gather_batch(counts)
-        return every[:self.batch_index].sum(0), every.sum(0)
+        return within + every[:self.batch_index].sum(0), every.sum(0)
+
+    def token_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over every rank holding other tokens, differentiably."""
+        return self.reduce_from(x, *DATA_AXES)
+
+    def token_sum_(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sum_(x, *DATA_AXES)
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         return self.reduce_from(x, *BATCH_AXES)

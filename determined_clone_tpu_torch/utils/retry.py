@@ -1,11 +1,12 @@
 """Retry with backoff for transient failures — the port's trimmed copy of
 ``determined_clone_tpu/utils/retry.py`` (what checkpoint storage, serving
-admission and the fleet router need).
+admission, the fleet router and the experiment runner's restarts need).
 
 A policy gives exponential backoff with full jitter: the delay before a
-retry is drawn uniformly from ``[0, min(max_delay, base * mult**(n-1))]``,
-and an optional ``deadline_s`` bounds the whole call. The JAX module's
-retry counters and its metrics-registry hook are not ported.
+retry is drawn uniformly from ``[0, min(max_delay, base * mult**(n-1))]``
+(``jitter="none"``: the cap itself), and an optional ``deadline_s``
+bounds the whole call. The JAX module's retry counters and its
+metrics-registry hook are not ported.
 """
 from __future__ import annotations
 
@@ -24,14 +25,18 @@ class RetryPolicy:
     base_delay_s: float = 0.1
     multiplier: float = 2.0
     max_delay_s: float = 5.0
+    jitter: str = "full"  # "full" | "none"
     deadline_s: Optional[float] = None
     retryable: Tuple[type, ...] = (ConnectionError, TimeoutError, OSError)
 
-    def backoff(self, failures: int) -> float:
+    def backoff(self, failures: int,
+                rng: Optional[random.Random] = None) -> float:
         """Delay before the retry that follows the Nth failure (1-based)."""
         cap = min(self.max_delay_s,
                   self.base_delay_s * self.multiplier ** max(failures - 1, 0))
-        return random.uniform(0.0, cap)
+        if self.jitter == "none":
+            return cap
+        return (rng if rng is not None else random).uniform(0.0, cap)
 
 
 def retry_call(fn: Callable[..., Any], *args: Any, policy: RetryPolicy,
@@ -56,3 +61,12 @@ def retry_call(fn: Callable[..., Any], *args: Any, policy: RetryPolicy,
                     raise
                 delay = min(delay, remaining)
             time.sleep(delay)
+
+
+def sleep_backoff(policy: RetryPolicy, failures: int,
+                  rng: Optional[random.Random] = None) -> float:
+    """Backoff sleep for loops whose retry structure lives elsewhere (the
+    experiment runner's restart queue); returns the delay slept."""
+    delay = policy.backoff(max(failures, 1), rng)
+    time.sleep(delay)
+    return delay

@@ -114,7 +114,7 @@ def _fields(cfg):
 def test_config_parses_as_jax_does(raw):
     assert _fields(TConfig.from_dict(raw)) == _fields(JConfig.from_dict(raw))
     hp = raw.get("hyperparameters", {})
-    assert TConfig.from_dict(raw).hyperparameters == hp
+    assert TConfig.from_dict(raw).hyperparameters.raw == hp
 
 
 @pytest.mark.parametrize("raw", BAD_CONFIGS, ids=range(len(BAD_CONFIGS)))
@@ -157,7 +157,7 @@ def test_config_from_yaml_reads_the_example(tmp_path):
     t, j = (C.from_yaml(path) for C in (TConfig, JConfig))
     assert _fields(t) == _fields(j)
     assert t.resources.slots_per_trial == 8
-    assert t.hyperparameters["mesh"] == {"fsdp": 8}
+    assert t.hyperparameters.raw["mesh"] == {"fsdp": 8}
     assert Length.batches(400) == t.searcher.max_length
 
 

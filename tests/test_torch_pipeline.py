@@ -1,8 +1,9 @@
 """The second half of the port's parallelism slice against the JAX
 package, on the CPU: the GPipe pipeline over ``pp``
-(``parallel/pipeline.py``), the pipelined GPT and its MoE train step,
-a ``pp``-sharded checkpoint moved both ways, ring and Ulysses attention
-over ``sp`` (``ops/attention.py``) and the GPT over ``sp``.
+(``parallel/pipeline.py``), the pipelined GPT (blocks split over ``pp``
+or not) and its MoE train step, a ``pp``-sharded checkpoint moved both
+ways, ring and Ulysses attention over ``sp`` (``ops/attention.py``), and
+the GPT and the MoE GPT over ``sp``.
 
 The JAX side runs in this process on the virtual 8-device CPU mesh
 (``tests/conftest.py``). The port's side is one launch of four gloo
@@ -46,6 +47,7 @@ from determined_clone_tpu_torch.parallel import pipeline as tpipe  # noqa: E402
 from determined_clone_tpu_torch.parallel import sharding as tsh  # noqa: E402
 from determined_clone_tpu_torch.parallel.spmd import (  # noqa: E402
     local_tensor,
+    split_over,
     spmd_of,
 )
 from determined_clone_tpu_torch.training import optim  # noqa: E402
@@ -82,6 +84,10 @@ SP, QKV = 4, (2, 256, 8, 32)
 TINY = dict(vocab_size=256, n_layers=2, d_model=64, n_heads=4, d_ff=128,
             max_seq_len=64, remat=False)
 SPMESH = {"sp": 2, "fsdp": 2}
+# the MoE GPT over sp: JAX's mesh and the port's four ranks. k = 2 choices
+# of N tokens into E·C = 1.25·N slots, so every layer drops choices
+MOE_SP = {"sp2": ({"sp": 2}, {"dp": 2, "sp": 2}),
+          "sp2ep2": ({"sp": 2, "ep": 2}, {"dp": 1, "sp": 2, "ep": 2})}
 LR, CLIP = 1e-4, 0.5
 
 
@@ -180,6 +186,7 @@ def run(tmp_path_factory):
                                         jgpt.GPTConfig(**cfg)))
 
     pparams, mparams, tparams = init(**PGPT), init(**PMOE), init(**TINY)
+    moe_params = init(**TINY, moe_experts=4)
     ptokens = rng.randint(0, 64, size=(4, 16)).astype(np.int32)
     mbatches = [rng.randint(0, 64, size=(8, 17)).astype(np.int32)
                 for _ in range(2)]
@@ -191,7 +198,7 @@ def run(tmp_path_factory):
                      "ptokens": ptokens, "mparams": mparams,
                      "mbatches": mbatches, "qkv": (q, k, v),
                      "tparams": tparams, "tbatches": tbatches,
-                     "moe_params": init(**TINY, moe_experts=4)}, f)
+                     "moe_params": moe_params}, f)
     ranks = start_ranks(4, "all", d, script=__file__)
 
     ref = {"affine": _jax_affine(stacked, x)}
@@ -246,6 +253,36 @@ def run(tmp_path_factory):
     ref["sp_loss"] = {"loss": float(loss), "grads": {
         p: np.asarray(v) for p, v in jsh.tree_paths_and_leaves(g)}}
 
+    # the MoE GPT with tokens split over sp, on {sp: 2} and {sp: 2, ep: 2}
+    mcfg = jgpt.GPTConfig(**TINY, moe_experts=4, compute_dtype=jnp.float32)
+    ref["moe_sp"] = {}
+    for name, (sizes, _port) in MOE_SP.items():
+        jm = _jmesh(sizes)
+        tok_sh = JNamedSharding(jm, jgpt.TOKENS_SPEC)
+        placed = jax.device_put(moe_params, jgpt.GPT_SHARDING_RULES
+                                .shardings_for(moe_params, jm))
+        loss, g = jax.jit(jax.value_and_grad(
+            lambda p, t, y: jgpt.loss_fn(p, mcfg, t, y)))(
+                placed, jax.device_put(b[:, :-1], tok_sh),
+                jax.device_put(b[:, 1:], tok_sh))
+        ref["moe_sp"][name] = {"loss": float(loss), "grads": {
+            p: np.asarray(v) for p, v in jsh.tree_paths_and_leaves(g)}}
+
+    # pipeline_microbatches=2 over {pp: 2} with the blocks not split
+    # over pp (the default rules): JAX reshards the stack
+    jm = _jmesh({"pp": 2})
+    mb = mbatches[0]
+    loss, g = jax.jit(jax.value_and_grad(
+        lambda p, t, y: jgpt.loss_fn(p, pcfg, t, y, mesh=jm)))(
+            pparams, mb[:, :-1], mb[:, 1:])
+    ref["pp_unsplit"] = {
+        "logits": np.asarray(jax.jit(
+            lambda p, t: jgpt.apply(p, pcfg, t, mesh=jm))(pparams,
+                                                           mb[:, :-1])),
+        "loss": float(loss),
+        "grads": {p: np.asarray(v) for p, v in
+                  jsh.tree_paths_and_leaves(g)}}
+
     join_ranks(ranks)
     outs = []
     for r in range(4):
@@ -295,7 +332,14 @@ def test_pipeline_refusals_and_bubble_match_jax(run):
     assert errors["zero_d"] == ref["affine"]["errors"]["zero_d"]
     assert errors["batch"] == ref["affine"]["errors"]["batch"]
     assert "not divisible by the 'pp' axis size 2" in errors["layers"]
-    assert "GPT_PP_SHARDING_RULES" in errors["unsplit"]
+    # a DTensor stack not split over pp is cut to each stage, as JAX
+    # reshards it: no refusal, and the plain stack's outputs and gradients
+    assert "unsplit" not in errors
+    for out in outs:
+        for key in ("y", "w", "b", "x"):
+            np.testing.assert_allclose(out["unsplit"][key],
+                                       ref["affine"][2][key], rtol=0,
+                                       atol=FWD_TOL, err_msg=key)
     assert outs[0]["pp1_direct"] is True
     for m, p in ((1, 4), (15, 2), (4, 4), (16, 4)):
         assert tpipe.pipeline_bubble_fraction(m, p) == \
@@ -382,13 +426,42 @@ def test_gpt_over_sp_matches_jax(run):
                   rel_to_max=True)
 
 
-def test_moe_gpt_over_sp_refuses_naming_the_roadmap(run):
-    """The MoE routing counts whole rows, so the MoE GPT refuses an
-    ``sp`` axis above 1 (the JAX package runs it; ``ROADMAP.md``, Queue
-    3) rather than route a block of the sequence as if it were rows."""
-    _, outs = run
-    assert "ROADMAP.md" in outs[0]["sp"]["moe_refusal"]
-    assert "'sp' axis" in outs[0]["sp"]["moe_refusal"]
+@pytest.mark.parametrize("name", list(MOE_SP))
+def test_moe_gpt_over_sp_matches_jax(run, name):
+    """The MoE GPT (4 experts, k 2, capacity factor 1.25) with tokens
+    split over ``sp`` by ``TOKENS_SPEC``: the loss and every leaf's
+    gradient against the JAX program on the global token array, at
+    ``{sp: 2}`` (the port's ranks ``{dp: 2, sp: 2}``, batch blocks and
+    sequence blocks at once) and ``{sp: 2, ep: 2}``. Choices are dropped
+    at capacity on every layer, so the slot order over rows and ``sp``
+    ranks decides which."""
+    ref, outs = run
+    want = ref["moe_sp"][name]
+    dropped = [out["moe_sp"][name]["dropped"] for out in outs]
+    print(f"{name}: choices dropped at capacity per rank {dropped}")
+    assert sum(dropped) > 0
+    for out in outs:
+        assert abs(out["moe_sp"][name]["loss"] / want["loss"] - 1) <= REL
+    _close_leaves(outs[0]["moe_sp"][name]["grads"], want["grads"], REL,
+                  rel_to_max=True)
+
+
+def test_pipelined_gpt_with_unsplit_blocks_matches_jax(run):
+    """``apply`` and ``loss_fn`` with ``pipeline_microbatches=2`` over
+    ``pp`` 2 (the port's ranks ``{dp: 2, pp: 2}``) with the params placed
+    by the default ``GPT_SHARDING_RULES``, blocks not split over ``pp``:
+    the JAX program's logits, loss and every gradient. After the sum over
+    ``pp`` each rank holds every layer's whole gradient: a layer whose
+    gradient is zero on any rank is a fault."""
+    ref, outs = run
+    want = ref["pp_unsplit"]
+    for out in outs:
+        got = out["pp_unsplit"]
+        np.testing.assert_allclose(got["logits"], want["logits"],
+                                   rtol=REL, atol=REL)
+        assert abs(got["loss"] / want["loss"] - 1) <= REL
+        _close_leaves(got["grads"], want["grads"], REL, rel_to_max=True)
+        assert got["zero_layers"] == []
 
 
 def test_gpt_over_sp_dropout_equals_one_rank(run):
@@ -474,10 +547,20 @@ def _affine(spec):
                                          num_microbatches=2)
                 except ValueError as e:
                     errors[name] = str(e)
+            rep = tsh.shard_put(raw, tsh.replicated(mesh, raw))
+            targets = [local_tensor(rep["w"]), local_tensor(rep["b"])]
+            for t in targets:
+                t.requires_grad_(True)
+            x = torch.from_numpy(spec["x"]).requires_grad_(True)
+            y = tpipe.pipeline_apply(stage, rep, x, mesh=mesh,
+                                     num_microbatches=M)
+            gw, gb, gx = torch.autograd.grad((y ** 2).sum(), targets + [x])
+            unsplit = {"y": y.detach().numpy(), "w": gw.numpy(),
+                       "b": gb.numpy(), "x": gx.numpy()}
     one = tmesh.make_mesh(tmesh.MeshSpec(dp=4))
     direct = tpipe.pipeline_apply(lambda p, c: c * 2, {}, torch.ones(3),
                                   mesh=one, num_microbatches=2)
-    return out, errors, bool((direct == 2).all())
+    return out, errors, unsplit, bool((direct == 2).all())
 
 
 def _gpt_pp(spec):
@@ -602,23 +685,74 @@ def _sp(spec):
     dropped, _ = _sp_steps(drop, spec["tparams"], spec["tbatches"][:2], mesh)
     one, _ = _sp_steps(drop, spec["tparams"], spec["tbatches"][:2], None)
     plain, _ = _sp_steps(TINY, spec["tparams"], spec["tbatches"][:2], None)
-    moe = dict(TINY, moe_experts=4)
-    try:
-        tgpt.loss_fn(tsh.shard_put(
-            convert.params_from_numpy(spec["moe_params"], device="cpu"),
-            tgpt.GPT_SHARDING_RULES.shardings_for(spec["moe_params"],
-                                                  mesh4)),
-            tgpt.GPTConfig(**moe, compute_dtype=torch.float32),
-            tsh.to_dtensor(b[:, :-1].contiguous(), tok),
-            tsh.to_dtensor(b[:, 1:].contiguous(), tok))
-        moe_refusal = None
-    except ValueError as e:
-        moe_refusal = str(e)
     return {"metrics": metrics, "params": params, "loss4": float(loss),
-            "moe_refusal": moe_refusal,
             "grads4": _grads(loss, placed), "dropout": dropped,
             "dropout_one": one,
             "dropout_differs": abs(plain[0][1] / one[0][1] - 1) > 100 * REL}
+
+
+def _moe_sp(spec):
+    """The MoE GPT's loss and gradients with tokens split over sp, and the
+    choices this rank's tokens had dropped at capacity (every layer)."""
+    cfg = tgpt.GPTConfig(**TINY, moe_experts=4, compute_dtype=torch.float32)
+    b = torch.from_numpy(spec["tbatches"][0]).long()
+    dropped = [0]
+    routed = tgpt.moe_ffn
+
+    def counting(*args, **kwargs):
+        stats = {}
+        out = routed(*args, stats=stats, **kwargs)
+        dropped[0] += int((~stats["keep"]).sum())
+        return out
+
+    out = {}
+    tgpt.moe_ffn = counting
+    try:
+        for name, (_jax, sizes) in MOE_SP.items():
+            mesh = tmesh.make_mesh(tmesh.MeshSpec.from_dict(sizes))
+            placed = tsh.shard_put(
+                convert.params_from_numpy(spec["moe_params"], device="cpu"),
+                tgpt.GPT_SHARDING_RULES.shardings_for(spec["moe_params"],
+                                                      mesh))
+            for p in optim.leaves(placed):
+                local_tensor(p).requires_grad_(True)
+            tok = tsh.NamedSharding(mesh, tgpt.TOKENS_SPEC)
+            dropped[0] = 0
+            loss = tgpt.loss_fn(placed, cfg,
+                                tsh.to_dtensor(b[:, :-1].contiguous(), tok),
+                                tsh.to_dtensor(b[:, 1:].contiguous(), tok))
+            out[name] = {"loss": float(loss), "dropped": dropped[0],
+                         "grads": _grads(loss, placed)}
+    finally:
+        tgpt.moe_ffn = routed
+    return out
+
+
+def _pp_unsplit(spec):
+    """``pipeline_microbatches=2`` over ``{dp: 2, pp: 2}`` with the params
+    placed by ``GPT_SHARDING_RULES`` (blocks not split over pp): logits,
+    loss, every gradient, and the (leaf, layer) pairs of the stacked
+    blocks whose gradient is all zero on this rank."""
+    cfg = tgpt.GPTConfig(**PGPT, compute_dtype=torch.float32)
+    mesh = tmesh.make_mesh(tmesh.MeshSpec.from_dict({"dp": 2, "pp": 2}))
+    placed = tsh.shard_put(
+        convert.params_from_numpy(spec["pparams"], device="cpu"),
+        tgpt.GPT_SHARDING_RULES.shardings_for(spec["pparams"], mesh))
+    assert not any(split_over(t, "pp", 0) for _p, t in port_paths(placed))
+    for p in optim.leaves(placed):
+        local_tensor(p).requires_grad_(True)
+    b = torch.from_numpy(spec["mbatches"][0]).long()
+    place = tsh.NamedSharding(mesh, tsh.batch_spec(1))
+    inp = tsh.to_dtensor(b[:, :-1].contiguous(), place)
+    with torch.no_grad():
+        logits = tgpt.apply(placed, cfg, inp).full_tensor().numpy()
+    loss = tgpt.loss_fn(placed, cfg, inp,
+                        tsh.to_dtensor(b[:, 1:].contiguous(), place))
+    grads = _grads(loss, placed)
+    zero = [(p, layer) for p, g in grads.items() if p.startswith("blocks")
+            for layer in range(g.shape[0]) if not np.any(g[layer])]
+    return {"logits": logits, "loss": float(loss), "grads": grads,
+            "zero_layers": zero}
 
 
 def worker_all(d):
@@ -626,11 +760,13 @@ def worker_all(d):
     ctx = launch.init_from_env("cpu")
     with open(os.path.join(d, "in.pkl"), "rb") as f:
         spec = pickle.load(f)
-    affine, errors, direct = _affine(spec)
+    affine, errors, unsplit, direct = _affine(spec)
     attention, ulysses_error = _attention(spec, ctx.rank)
-    out = {"affine": affine, "errors": errors, "pp1_direct": direct,
-           "gpt_pp": _gpt_pp(spec), "attention": attention,
-           "ulysses_error": ulysses_error, "sp": _sp(spec)}
+    out = {"affine": affine, "errors": errors, "unsplit": unsplit,
+           "pp1_direct": direct, "gpt_pp": _gpt_pp(spec),
+           "attention": attention, "ulysses_error": ulysses_error,
+           "sp": _sp(spec), "moe_sp": _moe_sp(spec),
+           "pp_unsplit": _pp_unsplit(spec)}
     out["moe"] = _moe(spec, d, ctx.rank)   # last: it reads the JAX checkpoint
     with open(os.path.join(d, f"out-{ctx.rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
