@@ -264,7 +264,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (b)'s first 8 bit for bit. Prints the master's build and cluster-up
    seconds, each leg's submit→running (the master's queue) and start-up
    (spawn → first step), pause→checkpointed, and the experiment's wall
-   with its share in training steps beside phase 14's.
+   with its share in training steps beside phase 14's;
+16. the rest of the control plane, on phase 15's cluster before its
+   teardown (which follows phase 16 and runs even when phase 16 fails):
+   (a) ``sdk.Determined`` on phase 15's experiment (COMPLETED, one
+   trial), its ``top_checkpoint()`` registered as a model version,
+   downloaded (digest-verified, ``validate_checkpoint_dir``), loaded into
+   the port's ``GPTTrial`` and evaluated on the card as the trainer
+   evaluates: the validation loss equal to the master's at that
+   checkpoint's batch bit for bit, ``n_layers`` flash launches per eval
+   batch; (b) a ``ServingFleet`` of two ``GPTConfig()`` replicas (fp32 on
+   ``branch_scaled`` weights, phase 10's ``ServingConfig``) as the
+   master's serving gang through ``MasterLink`` in a pool of its own (so
+   no replica lands on phase 15's card agent): the master's fleet record
+   and its ``dct_master_sched_serving_*`` families, 8 requests with one
+   engine's tokens, a master-driven scale 2 → 1 with 8 requests in
+   flight (all answered with the same tokens, none rejected; the
+   drained replica's exit stamped after its last request), the kill
+   reclaiming every slot, no ``fleet-link``/``fleet-drain`` thread left;
+   (c) meanwhile an in-process master ingesting the fleet's metrics,
+   ``scrape_tick`` once a second, one absence rule per replica and the
+   stock SLO rules: the drained replica's rule goes pending → firing
+   within ``stale_s + for_s`` (one tick's slack) while the other stays
+   inactive, the CLI's ``query`` lists the series and reads a ``rate``,
+   ``alerts`` prints the rule firing and ``dct_alert_firing`` reads 1;
+   (d) through the port's CLI, a shell (``shell exec`` sees
+   ``CUDA_VISIBLE_DEVICES`` empty: a task without a slot gets no card),
+   a command (exit 0, its log on the master) and a TensorBoard task over
+   phase 15's experiment (``/data`` through the master's proxy holds the
+   20 training losses the master has); ``task kill`` ends the shell and
+   the TensorBoard task, the command having exited.
+   Prints the download's seconds and bytes, the replicas' time to
+   RUNNING, the drain's seconds and each task's submit → serving.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
@@ -277,7 +308,8 @@ two legs; phases 8, 9 and 10 launch none (``serving_launches``,
 phase 13's two legs, ``search_launches`` phase 14's search (its
 witness run not counted) and ``managed_launches`` the sum over phase
 15's managed legs, read from their shipped logs (each leg is a process
-the agent starts, so its count is its own).
+the agent starts, so its count is its own); ``sdk_launches`` is phase
+16 (a)'s evaluation and ``fleet_master_launches`` its (b), none.
 The last
 three lines are the kernels' JSON line, the card's name and power limit,
 and the result; the line before them gives the whole script's wall
@@ -4449,8 +4481,7 @@ def _wait(predicate, timeout, what, interval=0.2):
         if got:
             return got
         time.sleep(interval)
-    raise AssertionError(f"phase 15: timed out after {timeout} s waiting for "
-                         f"{what}")
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
 
 
 def _leg_logs(session, trial_id, legs) -> list:
@@ -4470,7 +4501,7 @@ def _log_value(lines, prefix, pattern):
     return None
 
 
-def phase_managed(master_build, search) -> dict:
+def phase_managed(master_build, search, cluster=None) -> dict:
     """Phase 15: (a) the C++ master built with ``make`` and
     ``deploy.local.cluster_up`` with one of the port's agents, which
     detects the card; (b) phase 7's GPT-124M trial submitted through the
@@ -4478,10 +4509,12 @@ def phase_managed(master_build, search) -> dict:
     subprocess), paused once its first checkpoint is registered and
     activated, held against an unbroken in-process ``fit_trial`` of the
     same config; (c) ``core.init_unmanaged`` around 8 steps of the same
-    trial in this process; (d) the phase's timings."""
+    trial in this process; (d) the phase's timings. With a ``cluster``
+    dict the cluster stays up for phase 16, which reads it from there,
+    and ``close_cluster(cluster)`` takes it down; without one it goes
+    down at the phase's end."""
     import math
     import re
-    import shutil
     import tempfile
 
     import torch
@@ -4506,6 +4539,9 @@ def phase_managed(master_build, search) -> dict:
     cfg_path = os.path.join(base, "experiment.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(managed_config(storage, MANAGED_BATCHES), f)
+    handoff = cluster is not None
+    cluster = {} if cluster is None else cluster
+    cluster.update(base=base, state_path=state_path, storage=storage)
     cli = None
     try:
         # (a) the master's build (started with the script) and cluster-up
@@ -4539,6 +4575,7 @@ def phase_managed(master_build, search) -> dict:
             raise AssertionError(f"phase 15: experiment create said "
                                  f"{first!r}{cli.stdout.read()}")
         exp_id = int(m.group(1))
+        cluster.update(port=port, exp_id=exp_id)
 
         def checkpoints():
             return session.get(
@@ -4610,8 +4647,8 @@ def phase_managed(master_build, search) -> dict:
         if cli is not None:
             cli.kill()
             cli.wait()
-        local.cluster_down(state_path=state_path)
-        shutil.rmtree(base, ignore_errors=True)
+        if not handoff:
+            close_cluster(cluster)
 
     def losses(recs, group):
         return [(r["steps_completed"], r["metrics"]["loss"]) for r in recs
@@ -4742,6 +4779,499 @@ def phase_managed(master_build, search) -> dict:
             "checks": checks}
 
 
+# phase 16: the rest of the control plane, on phase 15's cluster
+REST = {"lengths": (16, 40, 64, 90, 120, 24, 48, 100), "new": 32,
+        "seed": 16, "pool": "fleet-phase16", "replicas": 2,
+        "stale_s": 3.0, "for_s": 2.0, "tick_s": 1.0}
+
+
+def close_cluster(cluster) -> None:
+    """Phase 15's cluster down and its directory removed; what never came
+    up is skipped."""
+    import shutil
+
+    from determined_clone_tpu_torch.deploy import local
+
+    if cluster.get("state_path"):
+        local.cluster_down(state_path=cluster["state_path"])
+    if cluster.get("base"):
+        shutil.rmtree(cluster["base"], ignore_errors=True)
+
+
+def _run_cli(port, *argv):
+    """The port's CLI in this process against the master on ``port``:
+    (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from determined_clone_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["-m", f"127.0.0.1:{port}", *argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def rest_sdk(cluster) -> dict:
+    """(a) The SDK at full width: phase 15's experiment through
+    ``sdk.Determined``, its top checkpoint registered as a model version,
+    downloaded, validated and loaded into the port's ``GPTTrial``, whose
+    evaluation on the card must give the master's validation loss at
+    that checkpoint's batch bit for bit."""
+    import tempfile
+
+    import torch
+
+    from determined_clone_tpu_torch import core, sdk
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.core._serialization import load_pytree
+    from determined_clone_tpu_torch.examples.gpt_fsdp import GPTTrial
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.ops.layers import fold_seed
+    from determined_clone_tpu_torch.training import TrialContext
+    from determined_clone_tpu_torch.training.metrics import MetricAccumulator
+    from determined_clone_tpu_torch.training.train_step import (
+        create_train_state,
+        make_eval_step,
+    )
+    from determined_clone_tpu_torch.utils.data import batch_to_device
+
+    d = sdk.Determined("127.0.0.1", cluster["port"])
+    exp = d.get_experiment(cluster["exp_id"])
+    state = exp.state
+    trials = exp.trials()
+    top = exp.top_checkpoint()
+    steps = int(top.record["metadata"]["steps_completed"])
+    model = d.create_model("gpt-124m-managed")
+    version = model.register_version(top.uuid)
+    versions = model.versions()
+    out_dir = tempfile.mkdtemp(prefix="sdk-download-", dir=cluster["base"])
+    t0 = time.monotonic()
+    top.download(out_dir)
+    download_s = time.monotonic() - t0
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for root, _, files in os.walk(out_dir) for f in files)
+    valid = core.validate_checkpoint_dir(out_dir, top.uuid)
+
+    # the trial as the harness builds it, its state restored from the
+    # download, and the trainer's evaluation (make_eval_step over the
+    # trial's validation data, the metrics' mean as MetricAccumulator
+    # takes it)
+    cfg = ExperimentConfig.from_dict(
+        managed_config(cluster["storage"], MANAGED_BATCHES))
+    seed = cfg.experiment_seed
+    trial = GPTTrial(TrialContext(config=cfg, hparams=GPT_FSDP_HPARAMS,
+                                  core=None, mesh=None))
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(fold_seed(seed, 0))
+    like = create_train_state(trial.initial_params(gen), trial.optimizer(),
+                              fold_seed(seed, 1))
+    train_state = load_pytree(os.path.join(out_dir, "state"), like)
+    load_s = time.monotonic() - t0
+    eval_step = make_eval_step(trial.eval_metrics, seed=fold_seed(seed, 2))
+    flash_attention.launches = 0
+    t0 = time.monotonic()
+    acc = MetricAccumulator()
+    batches = 0
+    for vb in trial.validation_data():
+        acc.add(eval_step(train_state, batch_to_device(vb, "cuda")))
+        batches += 1
+    loss = acc.result()["loss"]
+    eval_s = time.monotonic() - t0
+    launches = flash_attention.launches
+    del train_state, like
+    torch.cuda.empty_cache()
+    master_val = [r["metrics"]["loss"] for r in
+                  d.session.trial_metrics(trials[0].id, limit=10000)
+                  if r["group"] == "validation"
+                  and r["steps_completed"] == steps]
+    n_layers = GPT_FSDP_HPARAMS["n_layers"]
+    checks = {
+        "(a) get_experiment: COMPLETED with one trial": (
+            state == "COMPLETED" and len(trials) == 1),
+        "(a) the top checkpoint registered as version 1": (
+            version["version"] == 1 and len(versions) == 1),
+        "(a) the download passes validate_checkpoint_dir": bool(valid),
+        f"(a) its validation loss at batch {steps} equals the master's "
+        f"bit for bit": bool(master_val) and loss == master_val[-1],
+        f"(a) {n_layers} flash launches per eval batch ({batches} "
+        f"batch(es))": launches == n_layers * batches and batches > 0,
+    }
+    log(f"[rest] (a) sdk: experiment {exp.id} {state}, {len(trials)} "
+        f"trial(s); checkpoint {top.uuid} at batch {steps}: "
+        f"download {download_s:.2f} s, {nbytes} bytes "
+        f"({nbytes / max(download_s, 1e-9) / 2 ** 30:.2f} GiB/s, warm page "
+        f"cache); load {load_s:.2f} s; eval {eval_s:.2f} s, loss "
+        f"{loss!r} vs the master's {master_val[-1] if master_val else None!r}"
+        f"; sdk_launches {launches}")
+    return {"checks": checks, "launches": launches, "loss": loss,
+            "master_loss": master_val[-1] if master_val else None,
+            "steps": steps, "download_s": download_s, "bytes": nbytes,
+            "load_s": load_s, "eval_s": eval_s, "eval_batches": batches,
+            "trial_id": trials[0].id}
+
+
+def _fleet_record(port, name):
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/api/v1/serving/fleets",
+            timeout=30) as resp:
+        fleets = json.loads(resp.read().decode())["fleets"]
+    return next((f for f in fleets if f["name"] == name), None)
+
+
+def _metrics_text(port) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        return resp.read().decode()
+
+
+def rest_fleet(cluster) -> dict:
+    """(b) A fleet as the master's serving gang: two ``GPTConfig()``
+    replicas through ``MasterLink`` in a pool of their own (so no replica
+    lands on phase 15's card agent), fp32 on ``branch_scaled`` weights;
+    8 requests held token for token against one engine; a master-driven
+    scale 2 → 1 with 8 requests in flight; the kill. (c) While it
+    serves, an in-process master ingests the fleet's metrics and ticks
+    its time series and rules once a second: one absence rule per
+    replica and the stock SLO rules; the killed replica's rule must fire
+    and the CLI's ``query`` and ``alerts`` read the store."""
+    import math
+    import threading
+
+    import torch
+
+    from determined_clone_tpu_torch.api.inprocess import (
+        InProcessMaster,
+        MasterHTTPServer,
+    )
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+    from determined_clone_tpu_torch.serving import (
+        BucketSpec,
+        InferenceEngine,
+        KVCacheConfig,
+        MasterLink,
+        ServingFleet,
+    )
+
+    port, name = cluster["port"], "phase16"
+    cfg = gpt.GPTConfig()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    scaled = branch_scaled(gpt.init(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"))
+    scfg = serving_config()
+    buckets = BucketSpec.build(scfg.max_batch, min(scfg.max_prefill_len,
+                                                   cfg.max_seq_len))
+    blocks = scfg.kv_blocks or scfg.max_batch * max(
+        1, math.ceil(cfg.max_seq_len / scfg.kv_block_size))
+    prompts = prompts_of(REST["lengths"], cfg.vocab_size, REST["seed"])
+    new = REST["new"]
+    flash_attention.launches = 0
+    t0 = time.monotonic()
+    with InferenceEngine.from_serving_config(scaled, cfg32, scfg,
+                                             device="cuda") as eng, \
+            torch.no_grad():
+        eng.warmup()
+        ref = [h.result(timeout=600).tokens
+               for h in [eng.submit(p, new) for p in prompts]]
+    ref_s = time.monotonic() - t0
+
+    master = InProcessMaster()
+    fleet = ServingFleet(scaled, cfg32, name=name, buckets=buckets,
+                         cache=KVCacheConfig(num_blocks=blocks,
+                                             block_size=scfg.kv_block_size),
+                         max_queue_depth=scfg.max_queue_depth,
+                         aggregator=master.aggregator, device="cuda")
+    link = sampler = None
+    stop = threading.Event()
+    ticks: list = []
+    out: dict = {}
+    try:
+        t0 = time.monotonic()
+        link = MasterLink(fleet, port, replicas=REST["replicas"],
+                          resource_pool=REST["pool"])
+        link.wait_replicas(REST["replicas"], timeout=600)
+        rec = _wait(lambda: (lambda f: f if f and f["running"] == 2
+                             else None)(_fleet_record(port, name)),
+                    120, "both replicas RUNNING on the master")
+        out["running_s"] = time.monotonic() - t0
+        out["record"] = rec
+        out["sched_families"] = [
+            fam for fam in ("dct_master_sched_serving_submitted_total",
+                            "dct_master_sched_serving_running_total",
+                            "dct_master_sched_serving_completed_total")
+            if fam in _metrics_text(port)]
+        ids = fleet.replica_ids()
+        out["agent_pool"] = {a["id"]: a["resource_pool"]
+                             for a in cluster["session"].list_agents()}
+
+        # (c) the time series while the fleet serves
+        master.enable_timeseries({"stock_slo_rules": True, "rules": [
+            {"name": f"gone-{rid}", "kind": "absence",
+             "series": "serving_queue_depth",
+             "labels": {"component": f"serving_replica_{rid}"},
+             "stale_s": REST["stale_s"], "for_s": REST["for_s"],
+             "severity": "page"} for rid in ids]})
+
+        def sample():
+            while not stop.is_set():
+                fleet.sample_telemetry()
+                # the fleet's SLO gauges (dct_slo_*) for the stock rules,
+                # as the master's own (its registry renders NaN, which a
+                # component's snapshot in the aggregator cannot)
+                fleet.slo.publish(master.aggregator.registry)
+                tick = master.scrape_tick()
+                ticks.append((time.monotonic(), set(fleet.replica_ids()),
+                              {r["name"]: r["state"]
+                               for r in tick["rules"]}))
+                stop.wait(REST["tick_s"])
+
+        sampler = threading.Thread(target=sample, name="phase16-scrape")
+        sampler.start()
+
+        hs = [fleet.submit(p, new, timeout=600) for p in prompts]
+        out["tokens"] = [h.result(600).tokens for h in hs]
+
+        # a master-driven scale 2 -> 1 with 8 requests in flight
+        done = {}
+        out["inflight_tokens"] = [None] * len(prompts)
+        inflight = [fleet.submit(p, new, timeout=600) for p in prompts]
+
+        def wait_one(i, h):
+            out["inflight_tokens"][i] = h.result(600).tokens
+            done[i] = time.time()   # the master's ended_at is wall time
+
+        waiters = [threading.Thread(target=wait_one, args=(i, h),
+                                    name=f"phase16-request-{i}")
+                   for i, h in enumerate(inflight)]
+        for w in waiters:
+            w.start()
+        # the master cancels the allocation at once and stamps its
+        # ended_at when the fleet's agent reports it exited (the slot's
+        # reclaim): that stamp must follow the replica's last request
+        t_scale, t_scale_wall = time.monotonic(), time.time()
+        link.scale(1)
+        _wait(lambda: len(fleet.replica_ids()) == 1, 300, "the drain")
+        out["drain_s"] = time.monotonic() - t_scale
+        for w in waiters:
+            w.join(600)
+        exited = _wait(lambda: [r for r in _fleet_record(port, name)[
+            "replicas"] if r["state"] == "CANCELED" and r["ended_at"]],
+            120, "the drained replica's exit on the master")[0]
+        gone = (set(ids) - set(fleet.replica_ids())).pop()
+        keep = fleet.replica_ids()[0]
+        on_gone = [i for i, h in enumerate(inflight)
+                   if h.replica_id == gone]
+        out.update(gone=gone, keep=keep, on_gone=len(on_gone),
+                   rejected=fleet.stats().rejected,
+                   exit_after_last=(bool(on_gone) and exited["ended_at"]
+                                    >= max(done[i] for i in on_gone)),
+                   exit_seen_s=exited["ended_at"] - t_scale_wall)
+
+        # the killed replica's absence rule: pending, then firing
+        rule = f"gone-{gone}"
+        _wait(lambda: any(st.get(rule) == "firing" for _, _, st in ticks),
+              REST["stale_s"] + REST["for_s"] + 30, f"{rule} to fire")
+        last_seen = max(t for t, live, _ in ticks if gone in live)
+        fired = min(t for t, _, st in ticks if st.get(rule) == "firing")
+        out["rule_states"] = [st.get(rule) for _, _, st in ticks]
+        out["fired_after_s"] = fired - last_seen
+        out["keep_states"] = {st.get(f"gone-{keep}") for _, _, st in ticks}
+        with MasterHTTPServer(master, 0) as srv:
+            out["cli"] = {" ".join(a): _run_cli(srv.port, *a) for a in (
+                ("query",),
+                ("query", "dct_fleet_requests_completed", "--reduce",
+                 "rate", "--window", "60"),
+                ("alerts",))}
+        out["alert_gauge"] = [
+            ln for ln in master.aggregator.registry.dump().splitlines()
+            if ln.startswith("dct_alert_firing{") and rule in ln]
+        stop.set()
+        sampler.join(30)
+        sampler = None
+
+        link.close(kill_fleet=True)
+        link = None
+        out["after_kill"] = _fleet_record(port, name)
+    finally:
+        stop.set()
+        if sampler is not None:
+            sampler.join(30)
+        if link is not None:
+            link.close(kill_fleet=True)
+        fleet.close()
+        master.stop_scraper()
+    launches = flash_attention.launches
+    leaked = [t.name for t in threading.enumerate()
+              if t.name.startswith(("fleet-link", "fleet-drain",
+                                    "phase16-"))]
+    q_list, q_rate, alerts = (out["cli"][k] for k in (
+        "query", "query dct_fleet_requests_completed --reduce rate "
+        "--window 60", "alerts"))
+    states = [s for s in out["rule_states"] if s]
+    checks = {
+        "(b) /api/v1/serving/fleets: running 2, queued 0, in the fleet's "
+        "own pool": (out["record"]["queued"] == 0
+                     and out["record"]["resource_pool"] == REST["pool"]
+                     and out["agent_pool"].get(f"fleet-{name}")
+                     == REST["pool"]),
+        "(b) the master's /metrics carries the dct_master_sched_serving_* "
+        "families": len(out["sched_families"]) == 3,
+        "(b) 8 requests answered with one engine's tokens (fp32, "
+        "branch_scaled), token for token": out["tokens"] == ref,
+        "(b) scale 2 -> 1: every request in flight answered with the same "
+        "tokens, none rejected": (out.get("inflight_tokens") == ref
+                                  and out["rejected"] == 0),
+        "(b) the drained replica reported `exited` only after its last "
+        "request": bool(out["exit_after_last"]),
+        "(b) close(kill_fleet=True) reclaimed every slot": (
+            out["after_kill"] is not None
+            and out["after_kill"]["running"] == 0),
+        "(b) no fleet-link or fleet-drain thread survives": not leaked,
+        "(c) the killed replica's absence rule went pending -> firing "
+        "within stale_s + for_s (+ one tick)": (
+            "pending" in states
+            and states.index("pending") < states.index("firing")
+            and out["fired_after_s"] <= REST["stale_s"] + REST["for_s"]
+            + 2 * REST["tick_s"]),
+        "(c) the surviving replica's rule stayed inactive": (
+            out["keep_states"] <= {"inactive", None}),
+        "(c) CLI query lists the series and reads a rate over a counter": (
+            q_list[0] == 0 and "serving_queue_depth" in q_list[1]
+            and "dct_fleet_requests_completed" in q_list[1]
+            and q_rate[0] == 0 and "rate over 60s:" in q_rate[1]
+            and "n/a" not in q_rate[1]),
+        "(c) CLI alerts prints the rule as firing, dct_alert_firing 1": (
+            alerts[0] == 0 and f"!! {rule} [page] firing" in alerts[1]
+            and len(out["alert_gauge"]) == 1
+            and out["alert_gauge"][0].endswith(" 1")),
+        "(b) no flash launch (the paged forward attends with mha)": (
+            launches == 0),
+    }
+    log(f"[rest] (b) fleet: reference engine {ref_s:.1f} s; replicas "
+        f"submit -> RUNNING {out['running_s']:.2f} s; drain of {gone} "
+        f"({out['on_gone']} requests in flight on it) {out['drain_s']:.2f}"
+        f" s, its exit stamped by the master {out['exit_seen_s']:.3f} s "
+        f"after the scale; fleet_master_launches {launches}")
+    log(f"[rest] (c) time series: {len(ticks)} ticks; {rule}: "
+        f"{' '.join(states)}; fired {out['fired_after_s']:.2f} s after "
+        f"its last sample; query rate: {q_rate[1].strip()}")
+    return {"checks": checks, "launches": launches,
+            "running_s": out["running_s"], "drain_s": out["drain_s"],
+            "exit_seen_s": out["exit_seen_s"], "ref_s": ref_s,
+            "fired_after_s": out["fired_after_s"], "ticks": len(ticks),
+            "on_gone": out["on_gone"], "leaked": leaked,
+            "cli": out["cli"]}
+
+
+def rest_ntsc(cluster, trial_id) -> dict:
+    """(d) NTSC on the port's agent, through the port's CLI: a shell (its
+    ``/exec`` sees no card), a command (exit 0, its log on the master)
+    and a TensorBoard task over phase 15's experiment (``/data`` through
+    the master's proxy holds the 20 training losses the master has);
+    ``task kill`` ends them."""
+    session, port = cluster["session"], cluster["port"]
+
+    def started(kind, *argv):
+        t0 = time.monotonic()
+        rc, out, err = _run_cli(port, *argv)
+        if rc != 0 or f"Started {kind} " not in out:
+            raise AssertionError(f"phase 16: {argv} -> {rc}: {out}{err}")
+        return out.split(f"Started {kind} ")[1].strip(), t0
+
+    def serving(task_id, t0, what):
+        _wait(lambda: (lambda t: t["state"] == "RUNNING"
+                       and t["proxy_address"])(session.get_task(task_id)),
+              120, what)
+        return time.monotonic() - t0
+
+    shell, t0 = started("shell", "shell", "start", "--name", "phase16-shell")
+    seconds = {"shell": serving(shell, t0, "the shell to serve")}
+    probe = _run_cli(port, "shell", "exec", shell, "--", sys.executable,
+                     "-c", "import os; print(repr(os.environ.get("
+                     "'CUDA_VISIBLE_DEVICES')))")
+    command, t0 = started("command", "cmd", "run", "--name", "phase16-cmd",
+                          "--", sys.executable, "-c",
+                          "print('phase 16 command ran')")
+    cmd_task = _wait(lambda: (lambda t: t if t["state"] in (
+        "COMPLETED", "ERRORED", "CANCELED") else None)(
+        session.get_task(command)), 120, "the command to end")
+    seconds["command"] = time.monotonic() - t0
+    cmd_log = _wait(lambda: [r for r in session.task_logs(command)
+                             if "phase 16 command ran" in str(r.get("log"))],
+                    60, "the command's log on the master")
+    tb, t0 = started("tensorboard", "tensorboard", "start",
+                     str(cluster["exp_id"]), "--name", "phase16-tb")
+    seconds["tensorboard"] = serving(tb, t0, "the TensorBoard task to serve")
+    data = session.proxy(tb, "/data")
+    tb_records = data["experiments"][str(cluster["exp_id"])]["trials"][
+        str(trial_id)]
+    master_records = session.trial_metrics(trial_id, limit=10000)
+
+    def train_losses(records):
+        return [(r["steps_completed"], r["metrics"]["loss"])
+                for r in records if r["group"] == "training"]
+
+    kills = [_run_cli(port, "task", "kill", t)[0] for t in (shell, tb)]
+    ends = {t: _wait(lambda t=t: (lambda x: x["state"] if x["state"] in (
+        "COMPLETED", "CANCELED", "ERRORED") else None)(session.get_task(t)),
+        60, f"{t} to end") for t in (shell, command, tb)}
+    checks = {
+        "(d) shell exec: a task with no slot sees CUDA_VISIBLE_DEVICES ''": (
+            probe[0] == 0 and probe[1].strip() == "''"),
+        "(d) cmd run exited 0 and its log reached the master": (
+            cmd_task["state"] == "COMPLETED" and cmd_task["exit_code"] == 0
+            and bool(cmd_log)),
+        "(d) TensorBoard /data through the master's proxy holds the "
+        f"{MANAGED_BATCHES} training losses the master has": (
+            len(train_losses(tb_records)) == MANAGED_BATCHES
+            and train_losses(tb_records) == train_losses(master_records)),
+        "(d) task kill: every task ended": (
+            kills == [0, 0] and ends[shell] == "CANCELED"
+            and ends[tb] == "CANCELED" and ends[command] == "COMPLETED"),
+    }
+    log("[rest] (d) ntsc: submit -> serving " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in seconds.items())
+        + " (the command: submit -> exited)")
+    return {"checks": checks, "seconds": seconds}
+
+
+def phase_rest(cluster) -> dict:
+    """Phase 16: the rest of the control plane on phase 15's cluster —
+    (a) the SDK, (b) a fleet as the master's serving gang, (c) the time
+    series and alert rules while it serves, (d) NTSC tasks; each check
+    failing the run."""
+    import torch
+
+    from determined_clone_tpu_torch.api.client import MasterSession
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    cluster["session"] = MasterSession("127.0.0.1", cluster["port"],
+                                       timeout=30, retries=5)
+    sdk_part = rest_sdk(cluster)
+    fleet_part = rest_fleet(cluster)
+    ntsc_part = rest_ntsc(cluster, sdk_part["trial_id"])
+    checks = {**sdk_part["checks"], **fleet_part["checks"],
+              **ntsc_part["checks"]}
+    for name, ok in checks.items():
+        log(f"[rest] check {'ok' if ok else 'FAILED'}: {name}")
+    phase_s = time.monotonic() - t_phase
+    log(f"[rest] phase 16 wall {phase_s:.1f} s")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 16 checks failed: {failed}")
+    return {"sdk": {k: v for k, v in sdk_part.items() if k != "checks"},
+            "fleet": {k: v for k, v in fleet_part.items()
+                      if k not in ("checks", "cli")},
+            "ntsc": ntsc_part["seconds"], "phase_s": phase_s,
+            "checks": checks}
+
+
 class _Tok:
     """A /v1/generate reply as check_greedy reads a result."""
 
@@ -4807,7 +5337,13 @@ def main(argv) -> int:
     report["second_half"] = phase_second_half(report["train"])
     report["telemetry"] = phase_telemetry(report["trial"]["legs"])
     report["search"] = phase_search()
-    report["managed"] = phase_managed(master_build, report["search"])
+    cluster: dict = {}
+    try:
+        report["managed"] = phase_managed(master_build, report["search"],
+                                          cluster)
+        report["rest"] = phase_rest(cluster)
+    finally:
+        close_cluster(cluster)
 
     smi = card_line()
     # the main path's case (bf16 at the GPT width) and, beside it, the
@@ -4828,6 +5364,8 @@ def main(argv) -> int:
         "telemetry_launches": report["telemetry"]["launches"],
         "search_launches": report["search"]["launches"],
         "managed_launches": report["managed"]["launches"],
+        "sdk_launches": report["rest"]["sdk"]["launches"],
+        "fleet_master_launches": report["rest"]["fleet"]["launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi

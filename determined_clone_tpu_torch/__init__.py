@@ -13,6 +13,14 @@ kernel is the flash-attention forward (``csrc/flash_attn_fwd.cu``,
 wrapped by ``ops/flash_attention.py``); the serving engine captures its
 paged forward in CUDA graphs (``serving/engine.py``).
 """
-from determined_clone_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # lazy, so that a module that needs no tensor (the NTSC task server,
+    # the agent, the CLI's master commands) starts without importing torch
+    if name == "resolve_device":
+        from determined_clone_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

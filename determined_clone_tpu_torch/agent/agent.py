@@ -22,7 +22,8 @@ download with the allocation token, the ``DCT_*`` task environment,
   process on every chip, so the C++ agent keeps no such list.
 - **Tasks run the port.** A trial runs ``python -m
   determined_clone_tpu_torch.exec.trial <entrypoint>``; the master's argv
-  ``python -m determined_clone_tpu.<mod> ...`` (GC, NTSC, fleet) runs
+  ``python -m determined_clone_tpu.<mod> ...`` (GC, the NTSC task
+  server ``exec.task``, the fleet's ``serving.fleet``) runs
   ``determined_clone_tpu_torch.<mod>`` under this interpreter. Where the
   port has no such entry point yet, the task exits at once with code 127
   and its shipped log names the missing module and its ``ROADMAP.md``
@@ -59,13 +60,13 @@ from typing import Any, Dict, List, Optional, Tuple
 SUPERVISOR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "supervisor.py")
 RUNTIMES = ("process", "container")
-# master argv modules the port has no entry point for yet
+# JAX modules the port has no entry point for, by their ROADMAP.md item
+# (any other missing module names Queue 1 as a whole)
 NOT_PORTED = {
-    "determined_clone_tpu_torch.exec.task": (
-        "ROADMAP.md, Queue 1, item 3.4: sdk.py, exec/task.py and NTSC"),
-    "determined_clone_tpu_torch.serving.fleet": (
-        "ROADMAP.md, Queue 1, item 3.3: the fleet's master side "
-        "(MasterLink, fleet up --with-master)"),
+    f"determined_clone_tpu_torch.{mod}": (
+        "ROADMAP.md, Queue 1, item 6: XLA executables (storage/"
+        "exec_cache.py and serving/warmstart.py)")
+    for mod in ("storage.exec_cache", "serving.warmstart")
 }
 EXIT_NOT_PORTED = 127
 
@@ -93,6 +94,7 @@ class RunningTask:
     task_pid: int = 0          # the task itself (container runtime)
     proc: Optional[subprocess.Popen] = None
     preempt_sent: bool = False
+    kill_sent: bool = False
     adopted: bool = False      # reattached: not our child
     dead_polls: int = 0
     alloc_token: str = ""
@@ -310,7 +312,10 @@ class Agent:
         if resp is None or resp[0] != 200:
             return False
         del self.pending_exits[:n_exits]
-        for cmd in json.loads(resp[1] or b"{}").get("commands", []):
+        commands = json.loads(resp[1] or b"{}").get("commands", [])
+        # kills first: the master frees the slots of an allocation it ends
+        # and may hand them to a start in this same reply
+        for cmd in sorted(commands, key=lambda c: c.get("type") == "start"):
             kind = cmd.get("type")
             if kind == "start":
                 self.start_task(cmd)
@@ -437,6 +442,8 @@ class Agent:
             return  # duplicate start
         c = self.config
         log_path = os.path.join(c.work_dir, f"task-{alloc_id}.log")
+        if int(cmd.get("slots", 0)) > len(self.free_cards):
+            self._reap_killed()
         try:
             cards = self._take_cards(int(cmd.get("slots", 0)))
         except RuntimeError as e:
@@ -507,6 +514,18 @@ class Agent:
                 os.kill(target, signal.SIGKILL)
             except OSError:
                 pass
+        task.kill_sent = True
+
+    def _reap_killed(self, timeout: float = 10.0) -> None:
+        """Wait for the tasks this agent has killed and give their cards
+        back: their slots are already free on the master."""
+        for task in self.tasks.values():
+            if task.kill_sent and task.proc is not None:
+                try:
+                    task.proc.wait(timeout=timeout)
+                except subprocess.TimeoutExpired:
+                    pass
+        self.reap_tasks()
 
     # -- running tasks --------------------------------------------------------
 

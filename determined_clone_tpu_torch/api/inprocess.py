@@ -18,11 +18,12 @@ Three ways in, same routing table:
 - :func:`serve_http` — a stdlib ThreadingHTTPServer front-end on an
   ephemeral port, so real-HTTP round trips exercise the wire format.
 
-The time-series layer (``enable_timeseries``, ``scrape_tick``,
-``start_scraper``) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item; without it ``/api/v1/timeseries`` and
-``/api/v1/alerts`` answer 404 "not enabled", as the JAX master does
-before ``enable_timeseries``.
+With ``enable_timeseries`` the master grows the time-series layer: the
+port's :class:`~determined_clone_tpu_torch.telemetry.tsdb.TimeSeriesDB`
+scraped from the aggregator and a
+:class:`~determined_clone_tpu_torch.telemetry.rules.RuleEngine`, served
+as ``GET /api/v1/timeseries`` and ``GET /api/v1/alerts``; before it both
+routes answer 404 "not enabled".
 """
 from __future__ import annotations
 
@@ -31,18 +32,25 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs
 
 from determined_clone_tpu_torch.api.client import MasterError
 from determined_clone_tpu_torch.telemetry.aggregate import (
     ClusterMetricsAggregator,
 )
 
-_ROADMAP_TIMESERIES = ("ROADMAP.md, Queue 1, item 3.3: TimeSeriesSignals "
-                       "with telemetry/tsdb.py and telemetry/rules.py")
-
 
 class InProcessMaster:
-    """Routes observability traffic into a cluster aggregator."""
+    """Routes observability traffic into a cluster aggregator.
+
+    With :meth:`enable_timeseries` the master also grows a history
+    layer: a :class:`~determined_clone_tpu_torch.telemetry.tsdb.TimeSeriesDB`
+    scraped from the aggregator plus a
+    :class:`~determined_clone_tpu_torch.telemetry.rules.RuleEngine`, exposed
+    as ``GET /api/v1/timeseries`` and ``GET /api/v1/alerts``. Tests
+    drive :meth:`scrape_tick` deterministically; long-running callers
+    start the ``dct-tsdb-scrape`` loop.
+    """
 
     def __init__(self, *,
                  clock: Callable[[], float] = time.time) -> None:
@@ -52,28 +60,73 @@ class InProcessMaster:
         self._trial_experiment: Dict[int, int] = {}
         self.tsdb: Any = None
         self.rules: Any = None
+        self._scraper: Any = None
 
     # -- time-series layer --------------------------------------------------
 
     def enable_timeseries(self, config: Optional[Any] = None, *,
                           tsdb: Any = None, rules: Any = None) -> Any:
-        raise NotImplementedError(
-            f"the master's time-series layer is not ported yet "
-            f"({_ROADMAP_TIMESERIES})")
+        """Attach the TSDB + rule engine. ``config`` is an
+        ObservabilityConfig (or its mapping form): ``timeseries:`` sizes
+        the store, ``rules:`` declares the alert rules, and
+        ``stock_slo_rules: true`` adds the SLO engine's fast/slow burn pair.
+        Returns the TSDB."""
+        from determined_clone_tpu_torch.telemetry.rules import (
+            RuleEngine,
+            stock_slo_rules,
+        )
+        from determined_clone_tpu_torch.telemetry.tsdb import TimeSeriesDB
+
+        raw: Dict[str, Any] = {}
+        if config is not None:
+            raw = (config.to_dict() if hasattr(config, "to_dict")
+                   else dict(config))
+        self.tsdb = tsdb if tsdb is not None else TimeSeriesDB.from_dict(
+            raw.get("timeseries"), clock=self._clock)
+        if rules is not None:
+            self.rules = rules
+        else:
+            engine = RuleEngine.from_config(raw.get("rules"),
+                                            clock=self._clock)
+            if raw.get("stock_slo_rules"):
+                for r in stock_slo_rules():
+                    engine.add(r)
+            self.rules = engine
+        return self.tsdb
 
     def scrape_tick(self, now: Optional[float] = None) -> Dict[str, Any]:
-        raise NotImplementedError(
-            f"the master's time-series layer is not ported yet "
-            f"({_ROADMAP_TIMESERIES})")
+        """One deterministic history tick: scrape the aggregator into
+        the TSDB, evaluate the rules against it, and publish firing
+        states back into the master registry (so the *next* scrape
+        stores the alert gauges too)."""
+        if self.tsdb is None:
+            raise RuntimeError("time-series layer not enabled "
+                               "(call enable_timeseries first)")
+        now = self._clock() if now is None else float(now)
+        stored = self.tsdb.scrape(self.aggregator, now=now)
+        states = (self.rules.evaluate(self.tsdb, now=now)
+                  if self.rules is not None else [])
+        if self.rules is not None:
+            self.rules.publish(self.aggregator.registry)
+        return {"stored": stored, "rules": states}
 
     def start_scraper(self, period_s: float = 5.0) -> None:
-        raise NotImplementedError(
-            f"the master's time-series layer is not ported yet "
-            f"({_ROADMAP_TIMESERIES})")
+        """Start the ``dct-tsdb-scrape`` background loop."""
+        from determined_clone_tpu_torch.telemetry.tsdb import TSDBScraper
+
+        if self.tsdb is None:
+            raise RuntimeError("time-series layer not enabled "
+                               "(call enable_timeseries first)")
+        if self._scraper is not None:
+            raise RuntimeError("scraper already started")
+        self._scraper = TSDBScraper(self.scrape_tick, period_s).start()
 
     def stop_scraper(self) -> None:
-        """Nothing to stop: no scraper runs without the time-series
-        layer."""
+        if self._scraper is not None:
+            self._scraper.close()
+            self._scraper = None
+        if self.tsdb is not None:
+            self.tsdb.close()
 
     # -- direct (same-process) surface -------------------------------------
 
@@ -121,7 +174,8 @@ class InProcessMaster:
 
         JSON payloads are dicts; ``/metrics`` returns Prometheus text.
         """
-        path = path.partition("?")[0]
+        path, _, query = path.partition("?")
+        params = {k: v[-1] for k, v in parse_qs(query).items()}
         path = path.rstrip("/") or "/"
         parts = [p for p in path.split("/") if p]
         if method == "GET" and path == "/metrics":
@@ -169,12 +223,13 @@ class InProcessMaster:
                 "application/json"
         if (method == "GET" and len(parts) == 3 and parts[:2] ==
                 ["api", "v1"] and parts[2] == "timeseries"):
-            return 404, {"error": "time-series layer not enabled on "
-                         "this master"}, "application/json"
+            return self._handle_timeseries(params)
         if (method == "GET" and len(parts) == 3 and parts[:2] ==
                 ["api", "v1"] and parts[2] == "alerts"):
-            return 404, {"error": "alert rules not enabled on this "
-                         "master"}, "application/json"
+            if self.rules is None:
+                return 404, {"error": "alert rules not enabled on this "
+                             "master"}, "application/json"
+            return 200, self.rules.alerts(), "application/json"
         if (method == "GET" and len(parts) == 5 and parts[:2] ==
                 ["api", "v1"] and parts[2] == "experiments"
                 and parts[4] == "trace"):
@@ -187,6 +242,37 @@ class InProcessMaster:
             return 200, {"samples": spans}, "application/json"
         return 404, {"error": f"no route for {method} {path}"}, \
             "application/json"
+
+    def _handle_timeseries(self, params: Dict[str, str]
+                           ) -> Tuple[int, Any, str]:
+        """``GET /api/v1/timeseries[?name=...&window=...&reduce=...&
+        labels=k=v,k=v&q=...]`` — no ``name`` lists series + store
+        stats; with one, runs a windowed query."""
+        if self.tsdb is None:
+            return 404, {"error": "time-series layer not enabled on "
+                         "this master"}, "application/json"
+        name = params.get("name")
+        if not name:
+            return 200, {"series": self.tsdb.series_names(),
+                         "stats": self.tsdb.stats()}, "application/json"
+        labels: Dict[str, str] = {}
+        for part in (params.get("labels") or "").split(","):
+            if not part:
+                continue
+            key, eq, value = part.partition("=")
+            if not eq:
+                return 400, {"error": f"bad labels matcher {part!r} "
+                             "(want k=v,k2=v2)"}, "application/json"
+            labels[key] = value
+        try:
+            payload = self.tsdb.query(
+                name, labels or None,
+                window_s=float(params.get("window", 300.0)),
+                reduce=params.get("reduce", "raw"),
+                q=float(params.get("q", 0.95)))
+        except ValueError as e:
+            return 400, {"error": str(e)}, "application/json"
+        return 200, payload, "application/json"
 
 
 class InProcessSession:

@@ -1,713 +1,5 @@
-"""Command line of the port: ``python -m determined_clone_tpu_torch.cli``.
-
-Ported: ``serve``, ``fleet up|status|rollout|scale``, ``kv stats`` (the
-JAX package's ``dct`` commands of those names, with the same flags plus
-``--device`` where a model runs) and the Quick start's commands against
-the C++ master: ``deploy local cluster-up|cluster-down|status`` (the
-master and the port's agents), ``experiment create [-f]|list|describe|
-kill|pause|activate``, ``trial describe|logs|metrics`` and ``agent
-list``, printing as the JAX CLI prints. The master's address is
-``-m/--master host:port`` or ``DCT_MASTER`` (default 127.0.0.1:8080).
-``fleet up --with-master`` (the fleet's master side) is not ported; the
-rest of ``dct`` is listed in ``ROADMAP.md``.
-"""
-from __future__ import annotations
-
-import argparse
-import base64
-import dataclasses
-import functools
-import json
-import os
-import sys
-import time
-from typing import Any, Dict, List, Optional
-
-
-def cmd_serve(args: argparse.Namespace) -> int:
-    """Serve a GPT over HTTP with continuous batching over a paged KV
-    cache. ``--selftest`` binds an ephemeral port, drives a few
-    generations through the HTTP surface, prints the engine stats as
-    JSON, and exits."""
-    import torch
-
-    from determined_clone_tpu_torch.config.experiment import ServingConfig
-    from determined_clone_tpu_torch.device import resolve_device
-    from determined_clone_tpu_torch.models import gpt
-    from determined_clone_tpu_torch.serving import InferenceEngine
-    from determined_clone_tpu_torch.serving.http import (
-        ServingHTTPServer,
-        generate_over_http,
-    )
-
-    device = resolve_device(args.device)
-    scfg = ServingConfig()
-    if args.config:
-        import yaml
-
-        with open(args.config) as f:
-            raw = yaml.safe_load(f) or {}
-        if raw.get("serving"):
-            scfg = ServingConfig.from_dict(raw["serving"])
-    if args.port is not None:
-        scfg = dataclasses.replace(scfg, port=args.port)
-    if args.host is not None:
-        scfg = dataclasses.replace(scfg, host=args.host)
-
-    if args.model != "tiny":
-        print(f"error: unknown model preset {args.model!r} (have: tiny)",
-              file=sys.stderr)
-        return 2
-    model_cfg = gpt.GPTConfig.tiny()
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = gpt.init(gen, model_cfg, device=device)
-    if args.checkpoint:
-        from determined_clone_tpu_torch.core._serialization import load_pytree
-
-        params = load_pytree(args.checkpoint, like=params)
-    with InferenceEngine.from_serving_config(params, model_cfg, scfg,
-                                             device=device) as engine:
-        # ready the whole program ladder (CUDA graphs on the card) before
-        # taking traffic
-        t0 = time.monotonic()
-        n_programs = engine.warmup()
-        print(f"warmup: {n_programs} programs ready "
-              f"in {time.monotonic() - t0:.1f}s", file=sys.stderr)
-        port = 0 if args.selftest else scfg.port
-        with ServingHTTPServer(engine, host=scfg.host, port=port) as server:
-            if args.selftest:
-                for prompt in ([1, 2, 3], [5, 6, 7, 8, 9], [11]):
-                    out = generate_over_http(server.url, prompt,
-                                             max_new_tokens=4)
-                    if len(out["tokens"]) != 4:
-                        print(f"error: selftest got {out}", file=sys.stderr)
-                        return 1
-                print(json.dumps(
-                    {"selftest": "ok", "url": server.url,
-                     "device": str(device),
-                     "stats": dataclasses.asdict(engine.stats())}))
-                return 0
-            print(f"serving {args.model} on {server.url} "
-                  f"(buckets: batch {engine.buckets.batch_buckets}, "
-                  f"prefill {engine.buckets.prefill_len_buckets}; "
-                  f"{engine.cache.num_blocks}x{engine.cache.block_size} "
-                  f"KV blocks; {device})")
-            try:
-                while True:
-                    time.sleep(3600)
-            except KeyboardInterrupt:
-                return 0
-
-
-_NO_MASTER = ("the master-backed fleet (MasterLink) is not ported yet "
-              "(ROADMAP.md, Queue 1, item 3.3: the fleet's master side); "
-              "run the fleet standalone and address its front door with "
-              "--url")
-
-
-def _tiny_params(args: argparse.Namespace, device):
-    """(GPTConfig.tiny(), params): a seeded init, or a checkpoint."""
-    import torch
-
-    from determined_clone_tpu_torch.models import gpt
-
-    model_cfg = gpt.GPTConfig.tiny()
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = gpt.init(gen, model_cfg, device=device)
-    if args.checkpoint:
-        from determined_clone_tpu_torch.core._serialization import load_pytree
-
-        params = load_pytree(args.checkpoint, like=params)
-    return model_cfg, params
-
-
-def _get_json(url: str, timeout: float = 10.0):
-    import urllib.request
-
-    with urllib.request.urlopen(url, timeout=timeout) as resp:
-        return json.loads(resp.read().decode("utf-8"))
-
-
-def _post_json(url: str, body, timeout: float):
-    import urllib.request
-
-    req = urllib.request.Request(
-        url, data=json.dumps(body).encode("utf-8"),
-        headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return json.loads(resp.read().decode("utf-8"))
-
-
-def cmd_fleet_up(args: argparse.Namespace) -> int:
-    """Run a serving fleet: N engine replicas behind the least-loaded
-    router with an HTTP front door, standalone. ``--selftest`` drives
-    traffic through the HTTP surface, prints fleet stats as JSON, and
-    exits."""
-    from determined_clone_tpu_torch.device import resolve_device
-    from determined_clone_tpu_torch.serving import ServingFleet
-    from determined_clone_tpu_torch.serving.http import (
-        FleetHTTPServer,
-        generate_over_http,
-    )
-
-    if args.with_master:
-        print(f"error: --with-master: {_NO_MASTER}", file=sys.stderr)
-        return 2
-    if args.model != "tiny":
-        print(f"error: unknown model preset {args.model!r} (have: tiny)",
-              file=sys.stderr)
-        return 2
-    device = resolve_device(args.device)
-    model_cfg, params = _tiny_params(args, device)
-    with ServingFleet(params, model_cfg, name=args.name,
-                      iteration_floor_s=args.iteration_floor,
-                      device=device) as fleet:
-        fleet.scale_up(args.replicas)
-        port = 0 if args.selftest else (args.port or 8085)
-        with FleetHTTPServer(fleet, host=args.host or "127.0.0.1",
-                             port=port) as server:
-            if args.selftest:
-                outs = [generate_over_http(server.url, [1, 2, 3],
-                                           max_new_tokens=4)
-                        for _ in range(2 * args.replicas)]
-                if any(len(o["tokens"]) != 4 for o in outs):
-                    print(f"error: selftest got {outs}", file=sys.stderr)
-                    return 1
-                print(json.dumps({
-                    "selftest": "ok", "url": server.url,
-                    "replicas": fleet.replica_ids(),
-                    "with_master": False, "device": str(device),
-                    "stats": dataclasses.asdict(fleet.stats())}))
-                return 0
-            print(f"fleet {fleet.name!r}: {args.replicas} replicas on "
-                  f"{server.url} (standalone; {device})")
-            try:
-                while True:
-                    time.sleep(3600)
-            except KeyboardInterrupt:
-                return 0
-
-
-def cmd_fleet_status(args: argparse.Namespace) -> int:
-    """Fleet health from a fleet front door (GET /v1/fleet)."""
-    if not args.url:
-        print(f"error: fleet status needs --url: {_NO_MASTER}",
-              file=sys.stderr)
-        return 2
-    view = _get_json(f"{args.url.rstrip('/')}/v1/fleet")
-    if args.json:
-        print(json.dumps(view, indent=2))
-        return 0
-    st = view["stats"]
-    print(f"fleet {view['name']!r}: {st['healthy']}/{st['replicas']} "
-          f"healthy, queue depth {st['queue_depth']}, "
-          f"{st['free_blocks']} free KV blocks, "
-          f"{st['completed']} completed, "
-          f"{st['tokens_generated']} tokens")
-    health = view.get("health") or {}
-    by_id = {r["id"]: r for r in health.get("replicas", [])}
-    for rep in view["replicas"]:
-        mark = (" [excluded]" if rep["id"] in view.get("excluded", [])
-                else "")
-        line = f"  {rep['id']}: {rep['state']}{mark}"
-        h = by_id.get(rep["id"])
-        if h:
-            line += (f" (breaker {h['breaker']}, "
-                     f"beat {h['beat_age_s']:.1f}s ago")
-            if h.get("fatal"):
-                line += f", FATAL: {h['fatal']}"
-            line += ")"
-        print(line)
-    if health.get("quarantined_requests"):
-        print(f"  {health['quarantined_requests']} request(s) "
-              f"quarantined as poison pills")
-    last = health.get("last_incident")
-    if last:
-        repl = ", ".join(last.get("replacement") or []) or "none"
-        print(f"  last incident: replica {last.get('replica')} "
-              f"{last.get('reason')} — {last.get('failed_requests')} "
-              f"request(s) failed over, "
-              f"{last.get('leaked_blocks')} block(s) leaked, "
-              f"recovered in {last.get('recovery_s', 0):.2f}s "
-              f"(replacement: {repl})")
-    return 0
-
-
-def cmd_fleet_rollout(args: argparse.Namespace) -> int:
-    """Blue-green checkpoint rollout through a fleet front door: the new
-    version is proven on a drained canary before the rest of the fleet
-    swaps, and no in-flight request ever spans a parameter change."""
-    report = _post_json(f"{args.url.rstrip('/')}/v1/rollout",
-                        {"checkpoint": args.checkpoint}, args.timeout)
-    if args.json:
-        print(json.dumps(report, indent=2))
-        return 0
-    order = report.get("order", [])
-    print(f"rollout complete in {report.get('duration_s', 0.0):.2f}s: "
-          f"canary {order[0] if order else '?'}, "
-          f"{len(order)} replicas swapped")
-    for rid in order:
-        print(f"  {rid}: drained in {report['drain_s'].get(rid, 0.0):.3f}s")
-    return 0
-
-
-def cmd_fleet_scale(args: argparse.Namespace) -> int:
-    """Resize a fleet through its front door (in-process drain)."""
-    if not args.url:
-        print(f"error: fleet scale needs --url: {_NO_MASTER}",
-              file=sys.stderr)
-        return 2
-    view = _post_json(f"{args.url.rstrip('/')}/v1/scale",
-                      {"replicas": args.replicas}, args.timeout)
-    print(f"fleet now has {len(view['replicas'])} replicas: "
-          f"{view['replicas']}")
-    return 0
-
-
-def cmd_kv_stats(args: argparse.Namespace) -> int:
-    """KV memory-hierarchy readout: from a live fleet front door (--url →
-    the ``kv_tier`` block of GET /v1/fleet — host tier counters plus
-    nested CAS stats) or straight off a shared_fs storage root's
-    ``cas/kv/`` namespace (--host-path)."""
-    if args.url:
-        kv = _get_json(f"{args.url.rstrip('/')}/v1/fleet").get("kv_tier")
-        if kv is None:
-            print("fleet has no KV memory hierarchy (kv_store off)",
-                  file=sys.stderr)
-            return 2
-        print(json.dumps(kv, indent=2, sort_keys=True))
-        return 0
-    if not args.host_path:
-        print("kv stats needs --url or --host-path", file=sys.stderr)
-        return 2
-    from determined_clone_tpu_torch.storage import SharedFSStorageManager
-    from determined_clone_tpu_torch.storage.cas import KVBlobStore
-
-    stats = KVBlobStore(SharedFSStorageManager(args.host_path)).stats()
-    print(json.dumps(stats, indent=2, sort_keys=True))
-    return 0
-
-
-# ---------------------------------------------------------------------------
-# the master-backed commands (the JAX CLI's, printing as it prints)
-# ---------------------------------------------------------------------------
-
-TERMINAL_STATES = ("COMPLETED", "CANCELED", "ERRORED", "DELETED")
-
-
-def _master_command(fn):
-    """A master's refusal, a missing file or a bad value is an error line
-    and exit 1, as the JAX CLI reports them."""
-    @functools.wraps(fn)
-    def wrapped(args: argparse.Namespace) -> int:
-        from determined_clone_tpu_torch.api.client import MasterError
-
-        try:
-            return fn(args)
-        except (MasterError, RuntimeError, FileNotFoundError,
-                ValueError) as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 1
-    return wrapped
-
-
-def make_session(args: argparse.Namespace):
-    from determined_clone_tpu_torch.api.client import MasterSession
-
-    master = args.master or os.environ.get("DCT_MASTER", "127.0.0.1:8080")
-    host, _, port = master.partition(":")
-    return MasterSession(host or "127.0.0.1", int(port or "8080"))
-
-
-def print_table(rows: List[Dict[str, Any]], columns) -> None:
-    if not rows:
-        print("(none)")
-        return
-    widths = {c: len(c) for c in columns}
-    rendered = []
-    for row in rows:
-        r = {c: str(row.get(c, "")) for c in columns}
-        for c in columns:
-            widths[c] = max(widths[c], len(r[c]))
-        rendered.append(r)
-    print(" | ".join(c.ljust(widths[c]) for c in columns))
-    print("-+-".join("-" * widths[c] for c in columns))
-    for r in rendered:
-        print(" | ".join(r[c].ljust(widths[c]) for c in columns))
-
-
-def print_json(obj: Any) -> None:
-    print(json.dumps(obj, indent=2, sort_keys=True))
-
-
-def read_context_dir(model_dir: str,
-                     max_bytes: int = 4 << 20) -> List[Dict[str, str]]:
-    """Base64 file list of a model-def directory, as the JAX SDK uploads
-    it (≈ read_v1_context, harness/determined/common/context.py)."""
-    out: List[Dict[str, str]] = []
-    total = 0
-    for root, dirs, files in os.walk(model_dir):
-        dirs[:] = [d for d in dirs if not d.startswith((".", "__pycache__"))]
-        for fname in sorted(files):
-            if fname.endswith((".pyc", ".pyo")):
-                continue
-            full = os.path.join(root, fname)
-            rel = os.path.relpath(full, model_dir)
-            with open(full, "rb") as f:
-                raw = f.read()
-            total += len(raw)
-            if total > max_bytes:
-                raise ValueError(
-                    f"context directory {model_dir} exceeds {max_bytes} bytes")
-            out.append({"path": rel.replace(os.sep, "/"),
-                        "content_b64": base64.b64encode(raw).decode()})
-    return out
-
-
-def wait_experiment(session, exp_id: int, timeout: float = 600,
-                    interval: float = 1.0) -> str:
-    """Block until the experiment reaches a terminal state; returns it."""
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        state = session.get_experiment(exp_id)["experiment"]["state"]
-        if state in TERMINAL_STATES:
-            return state
-        time.sleep(interval)
-    raise TimeoutError(f"experiment {exp_id} not done after {timeout}s")
-
-
-@_master_command
-def cmd_experiment_create(args: argparse.Namespace) -> int:
-    import yaml
-
-    session = make_session(args)
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
-    if not isinstance(config, dict):
-        raise SystemExit(f"config {args.config} must be a YAML mapping")
-    for override in args.config_override:
-        key, _, value = override.partition("=")
-        node = config
-        parts = key.split(".")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        try:
-            node[parts[-1]] = json.loads(value)
-        except json.JSONDecodeError:
-            node[parts[-1]] = value
-    body: Dict[str, Any] = {"config": config}
-    if args.model_dir:
-        body["context"] = read_context_dir(args.model_dir)
-    exp = session.post("/api/v1/experiments", body)["experiment"]
-    print(f"Created experiment {exp['id']}", flush=True)
-    if args.follow:
-        state = wait_experiment(session, exp["id"], timeout=args.timeout)
-        print(f"Experiment {exp['id']} finished: {state}")
-        return 0 if state == "COMPLETED" else 1
-    return 0
-
-
-@_master_command
-def cmd_experiment_list(args: argparse.Namespace) -> int:
-    exps = make_session(args).list_experiments()
-    if not args.show_archived:
-        exps = [e for e in exps if not e.get("archived")]
-    print_table(exps, ["id", "name", "state", "archived", "owner",
-                       "workspace", "project"])
-    return 0
-
-
-@_master_command
-def cmd_experiment_describe(args: argparse.Namespace) -> int:
-    print_json(make_session(args).get_experiment(args.experiment_id))
-    return 0
-
-
-@_master_command
-def cmd_experiment_pause(args: argparse.Namespace) -> int:
-    exp = make_session(args).pause_experiment(args.experiment_id)
-    print(f"Experiment {exp['id']} is {exp['state']}")
-    return 0
-
-
-@_master_command
-def cmd_experiment_activate(args: argparse.Namespace) -> int:
-    exp = make_session(args).activate_experiment(args.experiment_id)
-    print(f"Experiment {exp['id']} is {exp['state']}")
-    return 0
-
-
-@_master_command
-def cmd_experiment_kill(args: argparse.Namespace) -> int:
-    make_session(args).kill_experiment(args.experiment_id)
-    print(f"Killed experiment {args.experiment_id}")
-    return 0
-
-
-@_master_command
-def cmd_trial_describe(args: argparse.Namespace) -> int:
-    print_json(make_session(args).get_trial(args.trial_id))
-    return 0
-
-
-@_master_command
-def cmd_trial_metrics(args: argparse.Namespace) -> int:
-    print_json(make_session(args).trial_metrics(args.trial_id, args.limit))
-    return 0
-
-
-@_master_command
-def cmd_trial_logs(args: argparse.Namespace) -> int:
-    from determined_clone_tpu_torch.api.client import MasterError
-
-    session = make_session(args)
-    legs = session.trial_log_allocations(args.trial_id)
-    if not args.follow:
-        for alloc_id in legs:
-            for rec in session.task_logs(alloc_id):
-                print(rec.get("log", ""))
-        return 0
-    # follow: drain earlier legs from their cursors, then live-tail the
-    # newest; a restart creates a new leg, so on end-of-stream re-list and
-    # keep going until the trial is terminal with no new leg
-    cursors: Dict[str, int] = {}
-
-    def emit(alloc_id: str, follow_seconds: int) -> None:
-        n = cursors.get(alloc_id, 0)
-        try:
-            for rec in session.follow_task_logs(
-                    alloc_id, offset=n, follow_seconds=follow_seconds):
-                print(rec.get("log", ""), flush=True)
-                n += 1
-        except MasterError as err:
-            # a queued leg may be listed before its allocation registers
-            if err.status != 404:
-                raise
-            time.sleep(1.0)
-        cursors[alloc_id] = n
-
-    while True:
-        for alloc_id in legs[:-1]:
-            emit(alloc_id, 0)   # dead leg: just drain past the cursor
-        if legs:
-            emit(legs[-1], 30)  # live leg: block for new lines
-        state = session.get_trial(args.trial_id).get("state", "")
-        new_legs = session.trial_log_allocations(args.trial_id)
-        if new_legs == legs and state in ("COMPLETED", "ERRORED",
-                                          "CANCELED"):
-            return 0
-        if new_legs == legs:
-            time.sleep(1.0)  # e.g. PAUSED with a drained leg: don't spin
-        legs = new_legs
-
-
-@_master_command
-def cmd_agent_list(args: argparse.Namespace) -> int:
-    agents = make_session(args).list_agents()
-    print_table(agents, ["id", "resource_pool", "slots", "topology",
-                         "enabled", "address"])
-    return 0
-
-
-@_master_command
-def cmd_deploy_up(args: argparse.Namespace) -> int:
-    from determined_clone_tpu_torch.deploy import cluster_up
-
-    state = cluster_up(
-        n_agents=args.agents, slots_per_agent=args.slots_per_agent,
-        port=args.port, topology=args.topology or "",
-        scheduler=args.scheduler, auth_required=args.auth_required,
-        device=args.device)
-    slots = (f"{args.slots_per_agent} slot(s)"
-             if args.slots_per_agent is not None else "detected slots")
-    print(f"Local cluster up: master 127.0.0.1:{state['port']} "
-          f"({args.agents} agent(s) x {slots})")
-    print(f"  export DCT_MASTER=127.0.0.1:{state['port']}")
-    return 0
-
-
-@_master_command
-def cmd_deploy_down(args: argparse.Namespace) -> int:
-    from determined_clone_tpu_torch.deploy import cluster_down
-
-    out = cluster_down()
-    print(f"Stopped {out['stopped']} process(es)")
-    return 0
-
-
-@_master_command
-def cmd_deploy_status(args: argparse.Namespace) -> int:
-    from determined_clone_tpu_torch.deploy import cluster_status
-
-    print_json(cluster_status())
-    return 0
-
-
-def _add_master_commands(sub) -> None:
-    p_exp = sub.add_parser("experiment", aliases=["e"], help="experiments")
-    se = p_exp.add_subparsers(dest="subcommand", required=True)
-    c = se.add_parser("create")
-    c.add_argument("config", help="experiment config YAML")
-    c.add_argument("model_dir", nargs="?", default=None,
-                   help="model definition directory to upload")
-    c.add_argument("--config-override", action="append", default=[],
-                   metavar="KEY=VALUE", help="dotted-path config override")
-    c.add_argument("-f", "--follow", action="store_true",
-                   help="wait for completion")
-    c.add_argument("--timeout", type=float, default=3600)
-    c.set_defaults(func=cmd_experiment_create)
-    c = se.add_parser("list")
-    c.add_argument("--show-archived", action="store_true",
-                   help="include archived experiments")
-    c.set_defaults(func=cmd_experiment_list)
-    for action, fn in (("describe", cmd_experiment_describe),
-                       ("kill", cmd_experiment_kill),
-                       ("pause", cmd_experiment_pause),
-                       ("activate", cmd_experiment_activate)):
-        c = se.add_parser(action)
-        c.add_argument("experiment_id", type=int)
-        c.set_defaults(func=fn)
-
-    p_trial = sub.add_parser("trial", aliases=["t"], help="trials")
-    st = p_trial.add_subparsers(dest="subcommand", required=True)
-    c = st.add_parser("describe")
-    c.add_argument("trial_id", type=int)
-    c.set_defaults(func=cmd_trial_describe)
-    c = st.add_parser("metrics")
-    c.add_argument("trial_id", type=int)
-    c.add_argument("--limit", type=int, default=1000)
-    c.set_defaults(func=cmd_trial_metrics)
-    c = st.add_parser("logs")
-    c.add_argument("trial_id", type=int)
-    c.add_argument("-f", "--follow", action="store_true",
-                   help="live-tail: long-poll for new lines until the "
-                        "trial is terminal")
-    c.set_defaults(func=cmd_trial_logs)
-
-    p_agent = sub.add_parser("agent", aliases=["a"], help="agents")
-    sa = p_agent.add_subparsers(dest="subcommand", required=True)
-    sa.add_parser("list").set_defaults(func=cmd_agent_list)
-
-    p_dep = sub.add_parser("deploy", help="cluster deployment")
-    sd = p_dep.add_subparsers(dest="subcommand", required=True)
-    p_local = sd.add_parser("local", help="local process cluster: the C++ "
-                                          "master and the port's agents")
-    sdl = p_local.add_subparsers(dest="action", required=True)
-    c = sdl.add_parser("cluster-up")
-    c.add_argument("--agents", type=int, default=1)
-    c.add_argument("--slots-per-agent", type=int, default=None,
-                   help="slots per agent (default: each agent detects "
-                        "its CUDA devices)")
-    c.add_argument("--port", type=int, default=None)
-    c.add_argument("--topology", default=None)
-    c.add_argument("--scheduler", default="fifo",
-                   choices=["fifo", "priority", "fair_share", "round_robin"])
-    c.add_argument("--auth-required", action="store_true")
-    c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="cpu: the agents run tasks on the CPU")
-    c.set_defaults(func=cmd_deploy_up)
-    sdl.add_parser("cluster-down").set_defaults(func=cmd_deploy_down)
-    sdl.add_parser("status").set_defaults(func=cmd_deploy_status)
-
-
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        prog="python -m determined_clone_tpu_torch.cli")
-    p.add_argument("-m", "--master", default=None,
-                   help="master address host:port (env DCT_MASTER)")
-    sub = p.add_subparsers(dest="cmd", required=True)
-    _add_master_commands(sub)
-    c = sub.add_parser("serve",
-                       help="serve a GPT over HTTP with continuous "
-                            "batching and a paged KV cache")
-    c.add_argument("--config", default=None,
-                   help="experiment config yaml; its `serving:` block "
-                        "sets buckets, KV pool, admission and speed knobs")
-    c.add_argument("--checkpoint", default=None,
-                   help="local checkpoint dir (save_pytree layout) to "
-                        "load params from; default: random init")
-    c.add_argument("--model", default="tiny",
-                   help="model preset (currently: tiny)")
-    c.add_argument("--seed", type=int, default=0,
-                   help="init seed when no checkpoint is given")
-    c.add_argument("--host", default=None)
-    c.add_argument("--port", type=int, default=None)
-    c.add_argument("--selftest", action="store_true",
-                   help="bind an ephemeral port, run a few generations "
-                        "through the HTTP surface, print stats, exit")
-    c.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; it raises without "
-                        "one unless `cpu` is named)")
-    c.set_defaults(func=cmd_serve)
-
-    p_fleet = sub.add_parser("fleet",
-                             help="serving fleet: replicas behind a "
-                                  "least-loaded router with blue-green "
-                                  "rollout")
-    fleet_sub = p_fleet.add_subparsers(dest="fleet_cmd", required=True)
-    c = fleet_sub.add_parser("up", help="run a fleet of engine replicas "
-                                        "with an HTTP front door")
-    c.add_argument("--replicas", type=int, default=2)
-    c.add_argument("--name", default="fleet")
-    c.add_argument("--model", default="tiny",
-                   help="model preset (currently: tiny)")
-    c.add_argument("--seed", type=int, default=0,
-                   help="init seed when no checkpoint is given")
-    c.add_argument("--checkpoint", default=None,
-                   help="local checkpoint dir (save_pytree layout)")
-    c.add_argument("--iteration-floor", type=float, default=0.0,
-                   help="simulated device-step floor in seconds")
-    c.add_argument("--with-master", action="store_true",
-                   help="not ported (ROADMAP.md, Queue 1, item 3.3): "
-                        "refused with an error")
-    c.add_argument("--host", default=None)
-    c.add_argument("--port", type=int, default=None)
-    c.add_argument("--selftest", action="store_true",
-                   help="drive traffic through the HTTP surface, print "
-                        "fleet stats as JSON, exit")
-    c.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; it raises without "
-                        "one unless `cpu` is named)")
-    c.set_defaults(func=cmd_fleet_up)
-
-    c = fleet_sub.add_parser("status", help="fleet health from the front "
-                                            "door")
-    c.add_argument("--url", default=None, help="fleet front-door URL")
-    c.add_argument("--json", action="store_true")
-    c.set_defaults(func=cmd_fleet_status)
-
-    c = fleet_sub.add_parser("rollout",
-                             help="blue-green checkpoint rollout: canary "
-                                  "first, drained swaps, zero failed "
-                                  "requests")
-    c.add_argument("--url", required=True, help="fleet front-door URL")
-    c.add_argument("--checkpoint", required=True,
-                   help="checkpoint dir to roll out")
-    c.add_argument("--timeout", type=float, default=300.0)
-    c.add_argument("--json", action="store_true")
-    c.set_defaults(func=cmd_fleet_rollout)
-
-    c = fleet_sub.add_parser("scale", help="drain-protected fleet resize")
-    c.add_argument("--replicas", type=int, required=True)
-    c.add_argument("--url", default=None, help="fleet front-door URL")
-    c.add_argument("--name", default="fleet")
-    c.add_argument("--timeout", type=float, default=300.0)
-    c.set_defaults(func=cmd_fleet_scale)
-
-    p_kv = sub.add_parser("kv", help="fleet-wide KV memory hierarchy "
-                                     "(host tier + cas/kv/ spill)")
-    skv = p_kv.add_subparsers(dest="subcommand", required=True)
-    c = skv.add_parser("stats", help="tier entries, bytes, hit split, CAS "
-                                     "spill accounting")
-    c.add_argument("--url", default=None,
-                   help="fleet front-door URL (live host-tier + CAS "
-                        "counters)")
-    c.add_argument("--host-path", default=None,
-                   help="shared_fs storage root holding cas/kv/")
-    c.set_defaults(func=cmd_kv_stats)
-    return p
-
-
-def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-    return args.func(args)
+"""Command line of the port: ``python -m determined_clone_tpu_torch.cli``
+(the command tree is ``cli.py``, the port's copy of the JAX package's)."""
+from determined_clone_tpu_torch.cli.cli import build_parser, main
+
+__all__ = ["build_parser", "main"]

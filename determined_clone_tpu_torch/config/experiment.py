@@ -7,9 +7,9 @@ schema as data (``config/schema.py``), then the dataclasses parse values.
 ``hyperparameters`` is a :class:`HyperparameterSpace`; its ``raw`` is the
 mapping a trial reads.
 
-Where the JAX package validates an alert rule with ``telemetry/rules.py``,
-the port checks the rule as that module does (``_check_alert_rule``);
-the rule engine itself is the master's time-series layer.
+An ``observability.rules`` entry is validated by the port's own
+``telemetry/rules.py`` (``AlertRule.from_dict``), as the JAX package
+validates it with its own.
 
 A block whose behaviour the port does not have yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item instead of
@@ -342,80 +342,6 @@ class OptimizationsConfig:
 # stays unwrapped)
 # ---------------------------------------------------------------------------
 
-# the alert-rule vocabulary of the JAX package's telemetry/rules.py
-_RULE_KINDS = ("threshold", "rate_of_change", "burn_rate", "absence")
-_RULE_SEVERITIES = ("page", "ticket")
-_RULE_OPS = ("gt", "ge", "lt", "le")
-_RULE_REDUCES = ("avg", "max", "min", "last")
-_RULE_KEYS = {"name", "kind", "series", "labels", "window_s", "reduce",
-              "op", "value", "for_s", "severity", "stale_s", "windows",
-              "threshold", "objective", "bad_series", "total_series"}
-
-
-def _check_alert_rule(raw: Any) -> None:
-    """Raise ``ValueError`` or ``TypeError`` where the JAX package's
-    ``AlertRule.from_dict`` does, with its messages."""
-    if not isinstance(raw, dict):
-        raise ValueError(f"alert rule must be a mapping, got {raw!r}")
-    unknown = set(raw) - _RULE_KEYS
-    if unknown:
-        raise ValueError(
-            f"alert rule {raw.get('name', '?')!r}: unknown keys "
-            f"{sorted(unknown)}")
-    if not raw.get("name") or not raw.get("kind"):
-        raise ValueError(f"alert rule needs name + kind, got {raw!r}")
-    name, kind = str(raw["name"]), str(raw["kind"])
-    series, value = raw.get("series"), raw.get("value")
-    stale_s, windows = raw.get("stale_s"), raw.get("windows")
-    threshold, objective = raw.get("threshold"), raw.get("objective")
-    severity = raw.get("severity", "ticket")
-    op, reduce = raw.get("op", "gt"), raw.get("reduce", "avg")
-    if kind not in _RULE_KINDS:
-        raise ValueError(f"rule {name!r}: unknown kind {kind!r} "
-                         f"(one of {_RULE_KINDS})")
-    if severity not in _RULE_SEVERITIES:
-        raise ValueError(f"rule {name!r}: severity must be one of "
-                         f"{_RULE_SEVERITIES}, got {severity!r}")
-    if op not in _RULE_OPS:
-        raise ValueError(f"rule {name!r}: op must be one of "
-                         f"{sorted(_RULE_OPS)}, got {op!r}")
-    if reduce not in _RULE_REDUCES:
-        raise ValueError(f"rule {name!r}: reduce must be one of "
-                         f"{_RULE_REDUCES}, got {reduce!r}")
-    if kind in ("threshold", "rate_of_change"):
-        if not series or value is None:
-            raise ValueError(
-                f"rule {name!r}: kind {kind!r} needs series + value")
-    elif kind == "absence":
-        if not series or stale_s is None or stale_s <= 0:
-            raise ValueError(
-                f"rule {name!r}: absence needs series + stale_s > 0")
-    else:  # burn_rate
-        if threshold is None or not windows or len(windows) < 1:
-            raise ValueError(
-                f"rule {name!r}: burn_rate needs windows + threshold")
-        if raw.get("bad_series"):
-            if not raw.get("total_series") or objective is None:
-                raise ValueError(
-                    f"rule {name!r}: counter-pair burn_rate needs "
-                    f"bad_series + total_series + objective")
-            if not 0.0 < objective < 1.0:
-                raise ValueError(
-                    f"rule {name!r}: objective must be in (0, 1), "
-                    f"got {objective}")
-        elif not series:
-            raise ValueError(
-                f"rule {name!r}: burn_rate needs either series (a "
-                f"burn gauge) or bad_series/total_series counters")
-    # the conversions the JAX rule's constructor makes
-    dict(raw.get("labels") or {})
-    float(raw.get("window_s", 300.0))
-    float(raw.get("for_s", 0.0))
-    if stale_s is not None:
-        float(stale_s)
-    list(windows or [])
-
-
 @dataclasses.dataclass
 class ObservabilityConfig:
     enabled: bool = False
@@ -504,11 +430,14 @@ class ObservabilityConfig:
             raise ConfigError(
                 f"observability.stale_after_s must be > 0, "
                 f"got {self.stale_after_s}")
-        # rule semantics (per-kind required fields, thresholds) as the
-        # JAX package's telemetry/rules.py checks them
+        # rule semantics (per-kind required fields, thresholds) live in
+        # telemetry/rules.py; validating here makes `experiment create`
+        # reject a bad rule instead of the master at scrape time
+        from determined_clone_tpu_torch.telemetry.rules import AlertRule
+
         for i, rule in enumerate(self.rules):
             try:
-                _check_alert_rule(rule)
+                AlertRule.from_dict(rule)
             except (TypeError, ValueError) as e:
                 raise ConfigError(
                     f"observability.rules[{i}]: {e}") from e

@@ -226,14 +226,17 @@ def _world(info: ClusterInfo, rdv: dict, device: str, chief_transport):
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
     rank = info.rank * slots + local_rank
     chief_host, store_port, ctrl_port = rdv["members"][0].rsplit(":", 2)
+    if rank == 0 and chief_transport is None:
+        # listening before the world forms: the workers connect as soon
+        # as init_rank returns on their side
+        chief_transport = _ChiefTransport(int(ctrl_port), world)
     launch.init_rank(rank, world, device=device, local_rank=local_rank,
                      master_addr=chief_host, master_port=int(store_port))
     cross = dict(local_rank=local_rank, local_size=slots)
     if rank == 0:
-        transport = chief_transport or _ChiefTransport(int(ctrl_port), world)
         return core.DistributedContext(
             rank=0, size=world, cross_rank=0, cross_size=world // slots,
-            transport=transport, **cross)
+            transport=chief_transport, **cross)
     return core.DistributedContext.from_tcp(chief_host, int(ctrl_port), rank,
                                             world, **cross)
 

@@ -2,8 +2,9 @@
 continuous-batching engine (chunked prefill, speculative decoding, CUDA
 graphs after warmup), the KV tiers below the prefix cache (host, CAS),
 and the fleet: replicas behind the prefix-affinity router with drain,
-blue-green rollout, supervision, autoscaling and chaos scenarios, and
-the HTTP front doors."""
+blue-green rollout, supervision, autoscaling and chaos scenarios, the
+HTTP front doors, and the master link (replicas as the master's serving
+gang allocations)."""
 from determined_clone_tpu_torch.serving.bucketing import (
     BucketSpec,
     bucket_for,
@@ -39,6 +40,7 @@ from determined_clone_tpu_torch.serving.router import (
 )
 from determined_clone_tpu_torch.serving.fleet import (
     FleetStats,
+    MasterLink,
     PoisonPillRequest,
     Replica,
     RequestLedger,
@@ -50,16 +52,19 @@ from determined_clone_tpu_torch.serving.autoscale import (
     AutoscalePolicy,
     Autoscaler,
     AutoscaleSignals,
+    TimeSeriesSignals,
 )
 
 __all__ = [
     "ADMISSION_RETRY", "AutoscalePolicy", "AutoscaleSignals", "Autoscaler",
     "BlockAllocator", "BucketSpec", "EngineStats", "FleetStats",
     "FleetSupervisor", "InferenceEngine", "KVBlockStore", "KVCacheConfig",
-    "LeastLoadedRouter", "NoHealthyReplica", "PoisonPillRequest",
+    "LeastLoadedRouter", "MasterLink", "NoHealthyReplica",
+    "PoisonPillRequest",
     "PrefixCache", "PrefixInventory", "PrefixMatch", "ROUTER_RETRY",
     "Replica", "ReplicaFailed", "Request", "RequestLedger", "RequestResult",
     "RolloutReport", "RoutablePort", "ServerOverloaded", "ServingFleet",
+    "TimeSeriesSignals",
     "bucket_for", "init_kv_pools", "params_fingerprint", "pow2_buckets",
     "prompt_chain_keys",
 ]

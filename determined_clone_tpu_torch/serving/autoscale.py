@@ -1,7 +1,7 @@
 """Queue-driven fleet autoscaling — the port's copy of
 ``determined_clone_tpu/serving/autoscale.py`` (docs/serving.md autoscaler
-section). ``TimeSeriesSignals``, which reads the master's time-series
-store, waits with the control-plane hooks (``ROADMAP.md``).
+section), ``TimeSeriesSignals`` (the master's time-series store as the
+signal source) included.
 
 Scaling signal: the engine gauges the fleet already exports. Growth is
 triggered by *sustained* congestion — per-replica queue depth or fleet
@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 from determined_clone_tpu_torch.telemetry.metrics import MetricsRegistry
 
@@ -60,6 +60,56 @@ class AutoscaleSignals:
     p99_s: float                   # worst replica p99 (NaN when no data)
 
 
+class TimeSeriesSignals:
+    """AutoscaleSignals read from the master TSDB instead of the
+    fleet's instantaneous stats (docs/observability.md "Time series,
+    queries & alert rules").
+
+    Instantaneous stats make the autoscaler react to whatever the
+    current tick happens to look like; the TSDB gives it *trends* —
+    queue depth averaged over ``window_s``, the worst p99 seen in the
+    window — and, optionally, alert-rule verdicts as overrides: while
+    any named ``congestion_rule`` fires, the signals read as congested
+    (p99 forced over any threshold) regardless of the raw numbers;
+    while an ``idle_rule`` fires (and nothing is congested), they read
+    as idle. Pass an instance as ``Autoscaler(signals_fn=...)``.
+    """
+
+    def __init__(self, tsdb: Any, *, window_s: float = 60.0,
+                 rules: Any = None,
+                 congestion_rules: Sequence[str] = (),
+                 idle_rules: Sequence[str] = ()) -> None:
+        self.tsdb = tsdb
+        self.window_s = float(window_s)
+        self.rules = rules
+        self.congestion_rules = set(congestion_rules)
+        self.idle_rules = set(idle_rules)
+
+    def _reduced(self, name: str, reduce: str,
+                 default: float) -> float:
+        res = self.tsdb.query(name, window_s=self.window_s,
+                              reduce=reduce)
+        vals = [s["value"] for s in res["series"]
+                if s.get("value") is not None
+                and s["value"] == s["value"]]
+        return vals[0] if vals else default
+
+    def __call__(self) -> AutoscaleSignals:
+        healthy = int(self._reduced("dct_fleet_replicas", "last", 1.0))
+        queue = self._reduced("dct_fleet_queue_depth", "avg", 0.0)
+        p99 = self._reduced("dct_fleet_max_replica_p99_seconds", "max",
+                            float("nan"))
+        if self.rules is not None:
+            firing = set(self.rules.firing())
+            if firing & self.congestion_rules:
+                p99 = float("inf")
+            elif firing & self.idle_rules:
+                queue, p99 = 0.0, 0.0
+        return AutoscaleSignals(healthy=max(1, healthy),
+                                queue_depth=int(round(queue)),
+                                p99_s=p99)
+
+
 class Autoscaler:
     """Deterministic grow/shrink decisions over a ServingFleet.
 
@@ -78,7 +128,7 @@ class Autoscaler:
         self.fleet = fleet
         self.policy = policy
         self.dry_run = bool(dry_run)
-        # alternative signal source; None reads
+        # alternative signal source (e.g. TimeSeriesSignals); None reads
         # the fleet's instantaneous stats
         self.signals_fn = signals_fn
         self.registry = (registry if registry is not None

@@ -25,9 +25,10 @@ that make N replicas a *fleet* rather than N servers:
   and flushes its resident blocks there before a rollout, stop or
   replacement, so a new replica starts with the fleet's prefixes warm.
 
-The JAX fleet's ``MasterLink`` (the replicas as the C++ master's
-``serving`` gang allocations) waits with the control-plane hooks, and its
-``exec_cache_summary`` with the XLA executable cache (``ROADMAP.md``).
+:class:`MasterLink` runs the replicas as the C++ master's ``serving``
+gang allocations, as the JAX fleet's does. The JAX fleet's
+``exec_cache_summary`` waits with the XLA executable cache
+(``ROADMAP.md``).
 
 Telemetry: each replica keeps its own MetricsRegistry (the engine's
 gauges/histograms); ``sample_telemetry()`` stamps a per-replica
@@ -56,6 +57,8 @@ import json
 import os
 import threading
 import time
+import urllib.error
+import urllib.request
 import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -964,3 +967,197 @@ class ServingFleet:
             ident = {"wall_epoch": tracer.wall_epoch,
                      "process": tracer.process_name or component}
             ship(component, [{**ident, **rec} for rec in new])
+
+
+# ---------------------------------------------------------------------------
+# Master integration: the agent half of the `serving` allocation type.
+# ---------------------------------------------------------------------------
+
+
+def _master_req(port: int, method: str, path: str,
+                body: Optional[dict] = None, timeout: float = 5.0) -> Any:
+    """Minimal master client, same dialect as tools/loadgen.py (the
+    master runs authless by default; rbac gates pass when auth is off)."""
+    url = f"http://127.0.0.1:{port}{path}"
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        payload = resp.read()
+    return json.loads(payload) if payload else {}
+
+
+class MasterLink:
+    """Runs a ServingFleet as the master's serving gang allocations.
+
+    Registers as an agent (``fleet-<name>``), creates the fleet record
+    via ``POST /api/v1/serving/fleets``, then heartbeats on a ``fleet-
+    link`` thread. The master derives the commands: ``start`` commands
+    (``task_type == "serving"``) spawn a replica and confirm it with a
+    ``running`` task_event; ``kill`` commands (scale-down, fleet kill)
+    run the drain protocol on a ``fleet-drain-<alloc>`` thread and
+    report ``exited`` only once the replica's last request finished and
+    its blocks are freed — the drain-protected slot reclaim the master's
+    shrink comment promises.
+    """
+
+    def __init__(self, fleet: ServingFleet, master_port: int, *,
+                 replicas: int = 1, resource_pool: str = "default",
+                 slots_per_replica: int = 1, agent_slots: int = 16,
+                 poll_s: float = 0.05, drain_timeout: float = 60.0) -> None:
+        self.fleet = fleet
+        self.port = int(master_port)
+        self.poll_s = float(poll_s)
+        self.drain_timeout = float(drain_timeout)
+        self.agent_id = f"fleet-{fleet.name}"
+        self._lock = threading.Lock()
+        self._alloc_replica: Dict[str, str] = {}   # alloc id → replica id
+        self._exited: List[str] = []               # drained, to report
+        self._draining: Dict[str, threading.Thread] = {}
+        self._stop = threading.Event()
+        _master_req(self.port, "POST", "/api/v1/agents/register", {
+            "id": self.agent_id, "slots": int(agent_slots),
+            "topology": f"fleet-{agent_slots}", "address": "127.0.0.1:0",
+            "resource_pool": resource_pool})
+        _master_req(self.port, "POST", "/api/v1/serving/fleets", {
+            "name": fleet.name, "replicas": int(replicas),
+            "resource_pool": resource_pool,
+            "slots_per_replica": int(slots_per_replica)})
+        self._thread = threading.Thread(target=self._run, name="fleet-link",
+                                        daemon=True)
+        self._thread.start()
+
+    # -- master-facing actions --------------------------------------------
+
+    def scale(self, replicas: int) -> None:
+        """Ask the master for a new replica count; the heartbeat loop
+        applies the derived start/kill commands."""
+        _master_req(self.port, "POST",
+                    f"/api/v1/serving/fleets/{self.fleet.name}/scale",
+                    {"replicas": int(replicas)})
+
+    def fleet_status(self) -> Dict[str, Any]:
+        return _master_req(
+            self.port, "GET",
+            f"/api/v1/serving/fleets/{self.fleet.name}")["fleet"]
+
+    # -- agent loop --------------------------------------------------------
+
+    def _heartbeat(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            exited_ids = list(self._exited)
+            # draining allocs still report running — the replica process
+            # is alive until its last request finishes; the master just
+            # re-derives the (idempotently skipped) kill meanwhile
+            running = list(self._alloc_replica)
+        body = {"exited": [{"allocation_id": a, "exit_code": 0}
+                           for a in exited_ids],
+                "running": running}
+        resp = _master_req(
+            self.port, "POST",
+            f"/api/v1/agents/{self.agent_id}/heartbeat", body)
+        with self._lock:
+            # only forget exit reports the master actually received
+            self._exited = [a for a in self._exited if a not in exited_ids]
+        return resp.get("commands", [])
+
+    def _start_replica(self, alloc_id: str) -> None:
+        rid = self.fleet.scale_up(1)[0]
+        with self._lock:
+            self._alloc_replica[alloc_id] = rid
+        _master_req(self.port, "POST",
+                    f"/api/v1/agents/{self.agent_id}/task_event",
+                    {"allocation_id": alloc_id, "event": "running"})
+
+    def _drain_replica(self, alloc_id: str) -> None:
+        """fleet-drain-* thread body: drain protocol, then queue the
+        exit report for the next heartbeat."""
+        with self._lock:
+            rid = self._alloc_replica.get(alloc_id)
+        try:
+            if rid is not None and rid in self.fleet.replica_ids():
+                self.fleet.stop_replica(rid, self.drain_timeout)
+        except (TimeoutError, RuntimeError, KeyError):
+            pass  # report the exit regardless; the engine is going away
+        with self._lock:
+            self._alloc_replica.pop(alloc_id, None)
+            self._exited.append(alloc_id)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                commands = self._heartbeat()
+            except (urllib.error.URLError, OSError, ValueError):
+                if self._stop.wait(self.poll_s * 4):
+                    return
+                continue
+            for cmd in commands:
+                ctype = cmd.get("type")
+                alloc_id = cmd.get("allocation_id", "")
+                if (ctype == "start"
+                        and cmd.get("task_type") == "serving"
+                        and cmd.get("fleet") == self.fleet.name):
+                    try:
+                        self._start_replica(alloc_id)
+                    except (urllib.error.URLError, OSError):
+                        pass  # running event retried via next derive
+                elif ctype == "kill" and alloc_id in self._alloc_replica:
+                    with self._lock:
+                        if alloc_id in self._draining:
+                            continue
+                        t = threading.Thread(
+                            target=self._drain_replica, args=(alloc_id,),
+                            name=f"fleet-drain-{alloc_id}", daemon=True)
+                        self._draining[alloc_id] = t
+                    t.start()
+            with self._lock:
+                done = [a for a, t in self._draining.items()
+                        if not t.is_alive()]
+                for a in done:
+                    self._draining.pop(a)
+            if self._stop.wait(self.poll_s):
+                return
+
+    def wait_replicas(self, n: int, timeout: float = 30.0) -> None:
+        """Block until the local fleet has ``n`` replicas admitted."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.fleet.healthy_count() >= n:
+                return
+            time.sleep(0.02)
+        raise TimeoutError(
+            f"fleet {self.fleet.name!r} has {self.fleet.healthy_count()} "
+            f"healthy replicas after {timeout}s, wanted {n}")
+
+    def close(self, *, kill_fleet: bool = False, timeout: float = 30.0
+              ) -> None:
+        """Stop heartbeating (optionally killing the master-side fleet
+        first so slots free) and join the drain threads."""
+        if kill_fleet:
+            try:
+                _master_req(
+                    self.port, "POST",
+                    f"/api/v1/serving/fleets/{self.fleet.name}/kill", {})
+                deadline = time.monotonic() + timeout
+                while time.monotonic() < deadline:
+                    with self._lock:
+                        idle = not self._alloc_replica and not self._exited
+                    if idle:
+                        break
+                    time.sleep(self.poll_s)
+            except (urllib.error.URLError, OSError):
+                pass
+        self._stop.set()
+        self._thread.join(timeout)
+        with self._lock:
+            drains = list(self._draining.values())
+        for t in drains:
+            t.join(timeout)
+
+
+if __name__ == "__main__":  # pragma: no cover - the master's spec argv
+    raise SystemExit(
+        "determined_clone_tpu_torch.serving.fleet is a library; start a "
+        "fleet with `dct fleet up` (the port's: `python -m "
+        "determined_clone_tpu_torch.cli fleet up`; see docs/serving.md)")

@@ -16,7 +16,9 @@ reads:
 - ``mesh.py`` — per-rank step times, device lanes, the cross-device
   straggler detector and the MULTICHIP schema;
 - ``metrics.py``, ``spans.py``, ``chrome_trace.py``, ``flight.py``,
-  ``aggregate.py``, ``slo.py`` — the JAX package's, copied.
+  ``aggregate.py``, ``slo.py``, ``tsdb.py`` (the master's time-series
+  store and its scrape loop), ``rules.py`` (alert rules over it) — the
+  JAX package's, copied.
 
 Metric and span names are the JAX package's, ``xla_compiles_total`` and
 ``xla_compile`` included, so the fleet's rollups and the aggregator read
@@ -55,20 +57,31 @@ from determined_clone_tpu_torch.telemetry.metrics import (
     MetricsRegistry,
     parse_prometheus_text,
 )
+from determined_clone_tpu_torch.telemetry.rules import (
+    AlertRule,
+    RuleEngine,
+    format_alerts,
+    stock_slo_rules,
+)
 from determined_clone_tpu_torch.telemetry.spans import (
     NULL_SPAN,
     Span,
     Tracer,
     null_span,
 )
+from determined_clone_tpu_torch.telemetry.tsdb import (
+    TSDBScraper,
+    TimeSeriesDB,
+)
 
 __all__ = [
-    "Counter", "FlightRecorder", "GOODPUT_CATEGORIES", "Gauge",
+    "AlertRule", "Counter", "FlightRecorder", "GOODPUT_CATEGORIES", "Gauge",
     "GoodputJournal", "GoodputLedger", "Histogram", "MetricsRegistry",
-    "NULL_SPAN", "Span", "Telemetry", "Tracer", "check_conservation",
+    "NULL_SPAN", "RuleEngine", "Span", "TSDBScraper", "Telemetry",
+    "TimeSeriesDB", "Tracer", "check_conservation", "format_alerts",
     "format_goodput", "merge_goodput", "null_span", "parse_prometheus_text",
-    "read_goodput", "telemetry_from_config", "validate_chrome_trace",
-    "write_chrome_trace",
+    "read_goodput", "stock_slo_rules", "telemetry_from_config",
+    "validate_chrome_trace", "write_chrome_trace",
 ]
 
 

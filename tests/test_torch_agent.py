@@ -138,6 +138,28 @@ def test_disjoint_cuda_visible_devices(lone_agent, tmp_path):
     assert lone_agent.free_cards == ["0", "1"]
 
 
+def test_start_after_kill_in_one_reply_gets_the_cards(lone_agent,
+                                                     monkeypatch):
+    """The master frees the slots of an allocation it ends and may hand
+    them to a start in the same heartbeat reply that kills the old task:
+    the kill goes first and the start gets the killed task's cards."""
+    lone_agent.start_task(command(
+        "old", [sys.executable, "-c", "import time; time.sleep(60)"],
+        slots=2))
+    assert lone_agent.free_cards == []
+    reply = json.dumps({"commands": [
+        command("new", [sys.executable, "-c", "pass"], slots=2),
+        {"type": "kill", "allocation_id": "old"}]}).encode()
+    monkeypatch.setattr(
+        lone_agent, "_http", lambda method, path, *a, **k: (
+            (200, reply) if path.endswith("/heartbeat") else None))
+    assert lone_agent.heartbeat()
+    assert lone_agent.tasks["new"].cards == ["0", "1"]
+    assert reap_exit(lone_agent, "new") == 0
+    assert [e["exit_code"] for e in lone_agent.pending_exits
+            if e["allocation_id"] == "old"] == [128 + signal.SIGKILL]
+
+
 def test_cards_follow_the_agents_own_visible_devices(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "4,6")
     agent = Agent(AgentConfig(master_port=free_port(), slots=2,
@@ -157,16 +179,23 @@ def test_cards_follow_the_agents_own_visible_devices(tmp_path, monkeypatch):
     (["python", "-c", "print(1)"], ["python", "-c", "print(1)"]),
     (["echo", "determined_clone_tpu.exec.task"],
      ["echo", "determined_clone_tpu.exec.task"]),
+    (["python", "-m", "determined_clone_tpu.exec.task", "tensorboard",
+      "--experiment-ids", "1,2"],
+     [sys.executable, "-m", "determined_clone_tpu_torch.exec.task",
+      "tensorboard", "--experiment-ids", "1,2"]),
+    (["python", "-m", "determined_clone_tpu.serving.fleet", "--fleet", "f"],
+     [sys.executable, "-m", "determined_clone_tpu_torch.serving.fleet",
+      "--fleet", "f"]),
 ])
 def test_argv_mapping(argv, want):
     assert map_argv(argv) == want
 
 
 @pytest.mark.parametrize("argv,module,item", [
-    (["python", "-m", "determined_clone_tpu.exec.task", "shell"],
-     "determined_clone_tpu_torch.exec.task", "item 3.4"),
-    (["python", "-m", "determined_clone_tpu.serving.fleet", "--fleet", "f"],
-     "determined_clone_tpu_torch.serving.fleet", "item 3.3"),
+    (["python", "-m", "determined_clone_tpu.storage.exec_cache"],
+     "determined_clone_tpu_torch.storage.exec_cache", "item 6"),
+    (["python3", "-m", "determined_clone_tpu.serving.warmstart", "--dir",
+      "d"], "determined_clone_tpu_torch.serving.warmstart", "item 6"),
     (["python", "-m", "determined_clone_tpu.no_such_module"],
      "determined_clone_tpu_torch.no_such_module", "ROADMAP.md, Queue 1"),
 ])

@@ -402,12 +402,25 @@ def test_inprocess_master_over_http_matches_jax():
 
 
 def test_timeseries_layer_raises_naming_the_roadmap():
-    m = tinproc.InProcessMaster()
-    for call in (m.enable_timeseries, m.scrape_tick, m.start_scraper):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, Queue 1, item 3.3"):
-            call()
-    m.stop_scraper()   # nothing started: a no-op, as in JAX
+    """The time-series layer is ported: before ``enable_timeseries`` the
+    tick and the scraper raise as the JAX master's do, with its message;
+    after it, one tick stores the same samples in both."""
+    errors = {}
+    for pkg, mod in (("jax", jinproc), ("port", tinproc)):
+        m = mod.InProcessMaster(clock=lambda: 1000.0)
+        errors[pkg] = []
+        for call in (m.scrape_tick, m.start_scraper):
+            with pytest.raises(RuntimeError) as err:
+                call()
+            errors[pkg].append(str(err.value))
+        m.stop_scraper()   # nothing started: a no-op
+        m.enable_timeseries({})
+        m.aggregator.ingest_prometheus_text("serving_replica_r0",
+                                            "serving_queue_depth 3\n")
+        errors[pkg].append((m.scrape_tick()["stored"], m.tsdb.stats()))
+        m.stop_scraper()
+    assert errors["port"] == errors["jax"]
+    assert "enable_timeseries" in errors["port"][0]
 
 
 # families the JAX trial ships and the port's does not (ROADMAP.md, Queue

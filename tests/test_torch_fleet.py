@@ -799,10 +799,18 @@ def test_fleet_up_selftest_on_the_cpu_and_refusals():
     doc = json.loads(run.stdout.strip().splitlines()[-1])
     assert doc["selftest"] == "ok" and doc["replicas"] == [
         "fleet-1", "fleet-2"] and doc["stats"]["completed"] == 4
-    assert cli.main(["fleet", "up", "--with-master", "--device",
-                     "cpu"]) == 2
-    assert cli.main(["fleet", "status"]) == 2
-    assert cli.main(["fleet", "scale", "--replicas", "1"]) == 2
+    # the master link speaks the loopback agent protocol: a remote master
+    # is refused before any connection, as the JAX CLI refuses it
+    assert cli.main(["-m", "master.example:8080", "fleet", "up",
+                     "--with-master", "--device", "cpu"]) == 2
+    # without --url, status and scale ask the master: none listens here
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{sock.getsockname()[1]}"
+    assert cli.main(["-m", dead, "fleet", "status"]) == 1
+    assert cli.main(["-m", dead, "fleet", "scale", "--replicas", "1"]) == 1
     assert cli.main(["kv", "stats"]) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -24,6 +24,10 @@ VOLATILE = {"id", "experiment_id", "trial_id", "created_at", "ended_at",
 
 def _strip(obj):
     if isinstance(obj, dict):
+        if "COMMIT" in obj:
+            # the marker holds the commit's time, whose printed length
+            # varies: its presence is compared, not its size
+            obj = {**obj, "COMMIT": True}
         return {k: _strip(v) for k, v in obj.items() if k not in VOLATILE}
     if isinstance(obj, list):
         return [_strip(v) for v in obj]
