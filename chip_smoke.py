@@ -84,8 +84,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ViT-S/16 (the hub's ``ViTClassificationTrial``) and the detector at
    ``DetectorConfig()``, 10 batches each, every loss finite. Prints each
    trial's samples/s and ms/step per report;
-9. the serving features at full width: ``GPTConfig()`` (bf16) with
-   random weights from a seed (phase 4's), engines built by
+9. the serving features at full width and a third of the depth:
+   ``GPTConfig(n_layers=SERVE_LAYERS)`` (d 768, 12 heads, d_ff 3072,
+   vocab 50304, 4 of the 12 layers, bf16; phases 3-5 and 16 serve all
+   12), its weights phase 3's model cut to its first 4 blocks
+   (``serving_params``; a second seed's likewise), engines built by
    ``InferenceEngine.from_serving_config`` from ``ServingConfig(
    max_batch=8, max_prefill_len=128, kv_block_size=16)``, every greedy
    token held to the phase-4 rule (``check_greedy``; in bf16 each near
@@ -105,8 +108,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    gap within the longest chunk call plus the longest decode step plus
    ``GAP_MARGIN_MS``, and ``run_static`` on the same requests; (c)
    speculative decoding with k=4, in fp32 and bf16, with the identity
-   testbed (``extend_with_identity_layers`` by 12 as the target, the
-   model as the draft: acceptance exactly 1.0 in fp32, at least
+   testbed (``extend_with_identity_layers`` by the model's own depth
+   as the target, the model as the draft: acceptance exactly 1.0 in
+   fp32, at least
    ``SPEC_MIN_ACCEPT_BF16`` in bf16) and a disagreeing draft
    (``slice_prefix_layers`` to 2; in fp32 also on ``branch_scaled``
    weights, where it disagrees, every token equal); (d) the lifecycle —
@@ -120,7 +124,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (eager) and warm (graph replays only, counted; the cold tokens), each
    with tokens/s, p50/p99 and the device's busy share, and ``hot_swap``
    after warmup. No flash launch. Prints the phase's wall time;
-10. the fleet at full width: ``ServingFleet`` replicas, each configured
+10. the fleet at phase 9's width and depth: ``ServingFleet`` replicas,
+   each configured
    as phase 9's engines with the prefix cache, 128-token chunked
    prefill (a 96-token system prompt and a 40-token tail pass the
    largest prefill bucket) and a host tier over a CAS
@@ -217,17 +222,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    an artifact that ``validate_multichip`` accepts;
 14. the control-plane slice: an ASHA search of two ``GPTTrial``s at
    phase 7's hyperparameters but ``lr`` log-uniform in [10^-4.5,
-   10^-3] (``SEARCH``: 2 rungs at 10 and 20 batches, divisor 2,
-   ``scheduling_unit`` 10, ``max_restarts`` 1, ``observability`` on with
+   10^-3] (``SEARCH``: 2 rungs at 5 and 10 batches, divisor 2,
+   ``scheduling_unit`` 5, ``max_restarts`` 1, ``observability`` on with
    spans and metrics shipped), through ``ExperimentConfig.from_dict`` →
    ``LocalExperimentRunner(..., master=InProcessMaster(),
    device="cuda").run()``, the first promoted trial's rung-1 leg raising
    once before its first step: (a) 2 trials created, the searcher shut
-   down, every trial completed, at least one promoted to 20 batches, and
-   each promoted trial's reports at 10 then 20 with its checkpoint
+   down, every trial completed, at least one promoted to 10 batches, and
+   each promoted trial's reports at 5 then 10 with its checkpoint
    registered under its own request id (it resumed its own checkpoint);
    (b) the best promoted trial's final searcher metric and state (params
-   and Adam moments) equal an unbroken 20-batch ``fit_trial`` of its
+   and Adam moments) equal an unbroken 10-batch ``fit_trial`` of its
    hparams bit for bit; (c) the failed leg restarted once
    (``restarts`` 1, the runner's ``trial_restarts_total`` 1); (d) the
    events the searcher was given, replayed into a fresh ``Searcher``
@@ -259,9 +264,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    legs' shipped logs equal ``2 * n_layers`` per batch plus
    ``n_layers`` per validation; each leg had its own
    ``CUDA_VISIBLE_DEVICES``; the slot is free again; the master's GC
-   task exits 0; (c) ``core.init_unmanaged`` around 8 steps of the same
-   trial in this process: COMPLETED on the master, its 8 losses equal
-   (b)'s first 8 bit for bit. Prints the master's build and cluster-up
+   task exits 0; (c) ``core.init_unmanaged`` around 4 steps of the same
+   trial in this process: COMPLETED on the master, its 4 losses equal
+   (b)'s first 4 bit for bit. Prints the master's build and cluster-up
    seconds, each leg's submit→running (the master's queue) and start-up
    (spawn → first step), pause→checkpointed, and the experiment's wall
    with its share in training steps beside phase 14's;
@@ -295,7 +300,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    20 training losses the master has); ``task kill`` ends the shell and
    the TensorBoard task, the command having exited.
    Prints the download's seconds and bytes, the replicas' time to
-   RUNNING, the drain's seconds and each task's submit → serving.
+   RUNNING, the drain's seconds and each task's submit → serving;
+17. storage and batch inference (``phase_storage``, ``STORAGE``): (a) a
+   Core API loop at phase 7's widths (``GPTConfig()``, its AdamW state,
+   B=8, T=1024) saves its state with ``store_path`` and then the same
+   state with ``store_path_async`` while it keeps stepping: at least one
+   step dispatched while the upload thread is alive, ``wait_async``
+   registering the checkpoint, its files equal to the blocking save's
+   (sizes and sha256), ``2 * n_layers`` flash launches per step; (b) the
+   same state saved twice through ``type: cas``: the second save uploads
+   no chunk bytes, the restore equal bit for bit, ``checkpoint stats``
+   (the port's CLI) 2 checkpoints, their logical bytes twice the first
+   save's over the same chunk bytes; (c)
+   ``torch_batch_process`` over ``GPTConfig()``'s uncached forward, 256
+   sequences of 128 tokens in batches of 32, a progress checkpoint every
+   2 batches, preempted at its third question and resumed: each batch's
+   argmax and max logit equal an unbroken run's bit for bit, ``n_layers``
+   launches per batch; (d) ``autotune`` with ``make_gpt_measure`` at its
+   own config in a one-rank NCCL world: every candidate of
+   ``mesh_candidates(1)`` × remat measured, best first. Prints the
+   blocking and async saves' caller seconds, the cas saves' seconds and
+   bytes, the batch inference's tokens/s and the autotune rates.
 
 fp32 matrix products run in full fp32 throughout (TF32 off), the
 training phases included. The launch count in each kernel's entry is
@@ -309,16 +334,22 @@ phase 13's two legs, ``search_launches`` phase 14's search (its
 witness run not counted) and ``managed_launches`` the sum over phase
 15's managed legs, read from their shipped logs (each leg is a process
 the agent starts, so its count is its own); ``sdk_launches`` is phase
-16 (a)'s evaluation and ``fleet_master_launches`` its (b), none.
-The last
+16 (a)'s evaluation and ``fleet_master_launches`` its (b), none;
+``storage_launches`` phase 17's (a) steps and (c) batches.
+Each phase logs ``[phase N] start at <s>`` as it starts. The last
 three lines are the kernels' JSON line, the card's name and power limit,
-and the result; the line before them gives the whole script's wall
-time. Details go to ``smoke_out/chip_smoke.json``. Exits non-zero,
-printing no result, when CUDA is unavailable.
+and the result; the two lines before them give the whole script's wall
+time and each phase's (``[phases] {"1": s, ...}``). The script's budget
+is 780 s of the 1200 s limit; at ``WATCHDOG_S`` (1100 s) it prints every
+thread's stack to stderr and exits non-zero. Details go to
+``smoke_out/chip_smoke.json``. Exits non-zero, printing no result, when
+CUDA is unavailable.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import faulthandler
 import json
 import os
 import subprocess
@@ -358,6 +389,9 @@ TRAIN_TOL = {"loss": 2e-3, "grad_norm_rel": 5e-3, "max_update_rel": 0.01}
 MIN_LOSS_DROP = 1.0  # 32 steps on one batch: it memorises
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "smoke_out")
+# the run's budget is 780 s against the 1200 s limit; a run still going at
+# WATCHDOG_S prints every thread's stack and exits non-zero
+WATCHDOG_S = 1100
 
 
 def log(*args) -> None:
@@ -595,7 +629,10 @@ def check_greedy(params, cfg, prompts, results, tie_tol=0.0,
     """The reference's pin, step by step: at every generated position the
     full uncached forward (plain attention) over the prompt and the
     engine's tokens so far must pick the engine's token. Where every
-    step agrees this IS the greedy loop over ``apply``. With ``max_ties``
+    step agrees this IS the greedy loop over ``apply``. Attention being
+    causal, one forward over the prompt and all of a request's tokens
+    gives every step's logits at once (the position before each token).
+    With ``max_ties``
     above 0 (None: no cap), up to that many steps may pick another token
     at a near tie — the engine's token within ``tie_tol`` of the best
     logit — since the paged and uncached forwards run different matrix
@@ -607,30 +644,34 @@ def check_greedy(params, cfg, prompts, results, tie_tol=0.0,
 
     from determined_clone_tpu_torch.models import gpt
 
-    mha_cfg = dataclasses.replace(cfg, attention_impl="mha")
+    def step_logits(c, p, r):
+        x = torch.tensor([list(p) + list(r.tokens)[:-1]], device="cuda")
+        c = dataclasses.replace(c, attention_impl="mha")
+        return gpt.apply(params, c, x)[0, len(p) - 1:]
+
     exact = 0
     ties = []
     with torch.no_grad():
         for p, r in zip(prompts, results):
-            toks = list(p)
-            for t in r.tokens:
-                x = torch.tensor([toks], device="cuda")
-                logits = gpt.apply(params, mha_cfg, x)[0, -1]
-                best = int(logits.argmax())
-                if best == t:
+            if not r.tokens:
+                continue
+            logits = step_logits(cfg, p, r)
+            best = logits.argmax(dim=-1).tolist()
+            wit = None
+            for i, t in enumerate(r.tokens):
+                if best[i] == t:
                     exact += 1
-                    toks.append(t)
                     continue
-                where = (f"request {r.request_id} step {len(toks) - len(p)}"
-                         f": engine token {t}, greedy {best}")
-                tie = {"gap": float(logits[best] - logits[t])}
+                where = (f"request {r.request_id} step {i}: engine token "
+                         f"{t}, greedy {best[i]}")
+                tie = {"gap": float(logits[i, best[i]] - logits[i, t])}
                 if not tie["gap"] <= tie_tol:
                     raise AssertionError(f"{where}, logit gap {tie['gap']} > "
                                          f"{tie_tol}")
                 if witness is not None:
-                    w = gpt.apply(params, dataclasses.replace(
-                        witness, attention_impl="mha"), x)[0, -1]
-                    tie["witness_gap"] = float(w.max() - w[t])
+                    if wit is None:
+                        wit = step_logits(witness, p, r)
+                    tie["witness_gap"] = float(wit[i].max() - wit[i, t])
                     if not tie["witness_gap"] <= tie_tol:
                         raise AssertionError(
                             f"{where}: the witness puts the engine's token "
@@ -641,7 +682,6 @@ def check_greedy(params, cfg, prompts, results, tie_tol=0.0,
                     raise AssertionError(
                         f"{len(ties)} steps differ from the greedy loop at "
                         f"near ties, more than {max_ties}")
-                toks.append(t)
     return {"exact": exact, "near_ties": len(ties),
             "worst_tie_gap": max([x["gap"] for x in ties], default=0.0),
             "ties": ties, "tie_tol": tie_tol}
@@ -706,9 +746,12 @@ def phase_engine(params, cfg) -> dict:
 def profile_window(fn, label, out_lines, op_keys=()) -> dict:
     """Run ``fn`` under torch.profiler; the device time of its kernels,
     summed (one stream, so no two overlap), and the top kernels. Only
-    kernel rows count: an operator's row repeats its kernels' time. With
-    ``op_keys``, also the device time of those operators' own kernels
-    (``ops_ms``). Appends the full table to ``out_lines``."""
+    kernel rows count: an operator's row repeats its kernels' time. The
+    kernels are read from the profiler's raw events, grouped by name:
+    ``key_averages()`` builds a Python event per record first, seconds
+    for the many kernels of a serving burst. With ``op_keys``, also the
+    device time of those operators' own kernels (``ops_ms``), which
+    needs ``key_averages``. Appends the kernel table to ``out_lines``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -717,19 +760,23 @@ def profile_window(fn, label, out_lines, op_keys=()) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    averages = prof.key_averages()
-    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    total_us = sum(e.self_device_time_total for e in kernels)
-    out_lines += [f"== {label}: kernel time {total_us / 1e3:.3f} ms",
-                  averages.table(sort_by="self_device_time_total",
-                                 row_limit=30)]
-    top = [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-            "calls": e.count} for e in kernels[:8]]
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0, 0])
+            row[0] += e.duration_ns()
+            row[1] += 1
+    kernels = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    total_us = sum(ns for ns, _ in by_name.values()) / 1e3
+    out_lines.append(f"== {label}: kernel time {total_us / 1e3:.3f} ms")
+    out_lines += [f"{ns / 1e6:10.3f} ms {n:7d}x  {name[:120]}"
+                  for name, (ns, n) in kernels[:30]]
+    top = [{"name": name[:90], "ms": ns / 1e6, "calls": n}
+           for name, (ns, n) in kernels[:8]]
     out = {"device_ms": total_us / 1e3, "top": top}
     if op_keys:
         out["ops_ms"] = {e.key: e.self_device_time_total / 1e3
-                         for e in averages if e.key in op_keys}
+                         for e in prof.key_averages() if e.key in op_keys}
     return out
 
 
@@ -1882,11 +1929,34 @@ SERVE = {"max_batch": 8, "max_prefill_len": 128, "kv_block_size": 16,
          "chunk": 128, "short": 16, "short_new": 48,
          "spec_lengths": (16, 40, 90, 120),
          "burst": (16, 40, 64, 90, 120, 150, 180, 200), "spec_k": 4,
-         "identity_extra": 12, "draft_layers": 2, "abort_new": 400}
+         "draft_layers": 2, "abort_new": 400}
+# phases 9 and 10 serve GPTConfig()'s width at this depth: their host-bound
+# cold bursts, greedy witnesses and graph captures grow with it
+SERVE_LAYERS = 4
 SPEC_MIN_ACCEPT_BF16 = 0.95  # identity draft in bf16: near ties may flip
 # a short row's decode gap during a chunked prefill: one chunk call and
 # one decode step, plus the scheduler's host work between them
 GAP_MARGIN_MS = 3.0
+
+
+def serving_params(seed, cfg):
+    """Phases 9 and 10's weights: ``GPTConfig()`` from ``seed`` (phase
+    3's model for seed 0), its first ``cfg.n_layers`` blocks — the full
+    model cut in depth, its embedding, final norm and head whole."""
+    import torch
+
+    from determined_clone_tpu_torch.models import gpt
+
+    full = gpt.GPTConfig()
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(seed), full)
+    return gpt.slice_prefix_layers(params, full, cfg.n_layers)[0]
+
+
+def depth(cfg) -> str:
+    """The depth a rate was measured at, beside the full model's."""
+    from determined_clone_tpu_torch.models import gpt
+
+    return f"{cfg.n_layers} of {gpt.GPTConfig().n_layers} layers"
 
 
 def branch_scaled(params):
@@ -2204,8 +2274,8 @@ def serving_speculative(params, cfg) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
         name = "fp32" if dtype == torch.float32 else "bf16"
-        ext, ext_cfg = gpt.extend_with_identity_layers(
-            params, c, SERVE["identity_extra"])
+        # the target: the model deepened by its own depth of identities
+        ext, ext_cfg = gpt.extend_with_identity_layers(params, c, c.n_layers)
         lanes = {"identity": (ext, ext_cfg, params, c.n_layers, params),
                  "disagreeing": (params, c, gpt.slice_prefix_layers(
                      params, c, layers)[0], layers, params)}
@@ -2237,7 +2307,8 @@ def serving_speculative(params, cfg) -> dict:
             log(f"[serving] (c) {lane} draft, {name}, k={k}: acceptance "
                 f"{rate:.4f}, {per_verify:.3f} tokens per row and verify "
                 f"({rounds} row-rounds), "
-                f"{stats.tokens_generated / wall:.1f} tokens/s; greedy "
+                f"{stats.tokens_generated / wall:.1f} tokens/s "
+                f"({depth(c)}); greedy "
                 f"{pin['exact']} exact, {pin['near_ties']} near ties; echo "
                 f"share {echo_share(prompts, results):.3f}")
             checks[f"speculative ({lane}, {name}): tokens follow the "
@@ -2462,7 +2533,7 @@ def serving_warmup(params, params2, cfg, scaled, lines) -> dict:
         f"{budget}) in {warm_s:.2f} s; memory {mem}")
     for label, r in (("cold", cold), ("warm", warm)):
         log(f"[serving] (f) burst {label}, {lane}: {r['tokens_per_s']:.1f} "
-            f"tokens/s, p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, "
+            f"tokens/s ({depth(cfg)}), p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, "
             f"device {r['device_ms']:.1f} ms, busy share "
             f"{r['busy_share']:.3f}")
     log(f"[serving] (f) {lane}: warm burst calls {burst_calls} (cold engine "
@@ -2488,25 +2559,34 @@ def phase_serving(params, cfg) -> dict:
     from determined_clone_tpu_torch.models import gpt
     from determined_clone_tpu_torch.ops.flash_attention import flash_attention
 
-    params2 = gpt.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    params2 = serving_params(1, cfg)
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     scaled, scaled2 = branch_scaled(params), branch_scaled(params2)
     lines: list = []
     flash_attention.launches = 0
     t0 = time.monotonic()
     parts = {}
+    parts_s = {}
+    runs = (("prefix", lambda: serving_prefix(params, cfg, False)),
+            ("prefix_fp32_scaled", lambda: serving_prefix(scaled, cfg32,
+                                                          True)),
+            ("prefix_bf16_scaled", lambda: serving_prefix_witness(scaled,
+                                                                  cfg)),
+            ("chunked", lambda: serving_chunked(params, cfg, False)),
+            ("chunked_fp32_scaled", lambda: serving_chunked(scaled, cfg32,
+                                                            True)),
+            ("speculative", lambda: serving_speculative(params, cfg)),
+            ("lifecycle", lambda: serving_lifecycle(params, params2, cfg)),
+            ("http", lambda: serving_http(params, cfg)),
+            ("warmup", lambda: serving_warmup(params, params2, cfg, False,
+                                              lines)),
+            ("warmup_fp32_scaled", lambda: serving_warmup(
+                scaled, scaled2, cfg32, True, lines)))
     with torch.no_grad():
-        parts["prefix"] = serving_prefix(params, cfg, False)
-        parts["prefix_fp32_scaled"] = serving_prefix(scaled, cfg32, True)
-        parts["prefix_bf16_scaled"] = serving_prefix_witness(scaled, cfg)
-        parts["chunked"] = serving_chunked(params, cfg, False)
-        parts["chunked_fp32_scaled"] = serving_chunked(scaled, cfg32, True)
-        parts["speculative"] = serving_speculative(params, cfg)
-        parts["lifecycle"] = serving_lifecycle(params, params2, cfg)
-        parts["http"] = serving_http(params, cfg)
-        parts["warmup"] = serving_warmup(params, params2, cfg, False, lines)
-        parts["warmup_fp32_scaled"] = serving_warmup(scaled, scaled2, cfg32,
-                                                     True, lines)
+        for name, run in runs:
+            t_part = time.monotonic()
+            parts[name] = run()
+            parts_s[name] = round(time.monotonic() - t_part, 2)
     wall = time.monotonic() - t0
     launches = flash_attention.launches
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2518,12 +2598,13 @@ def phase_serving(params, cfg) -> dict:
     checks["no flash launch in phase 9"] = launches == 0
     for name, ok in checks.items():
         log(f"[serving] check {'ok' if ok else 'FAILED'}: {name}")
-    log(f"[serving] phase 9 wall {wall:.1f} s; flash launches {launches}")
+    log(f"[serving] phase 9 wall {wall:.1f} s at {depth(cfg)} ({parts_s}); "
+        f"flash launches {launches}")
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"phase 9 checks failed: {failed}")
     return {**parts, "flash_launches": launches, "wall_s": wall,
-            "checks": checks}
+            "parts_s": parts_s, "checks": checks}
 
 
 # -- phase 10: the fleet ------------------------------------------------------
@@ -3039,8 +3120,7 @@ def phase_fleet(params, cfg) -> dict:
     from determined_clone_tpu_torch.serving.chaos import run_scenarios
 
     new = FLEET["new"]
-    params2 = gpt.init(torch.Generator(device="cuda").manual_seed(1), cfg,
-                       device="cuda")
+    params2 = serving_params(1, cfg)
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     scaled, scaled2 = branch_scaled(params), branch_scaled(params2)
     smi = card_line()
@@ -3233,7 +3313,8 @@ def phase_fleet(params, cfg) -> dict:
     for n, r in out["bf16"].items():
         busy = (f"{r['busy_share']:.3f}" if r["busy_share"] is not None
                 else "not measured")
-        log(f"[fleet] (a) bf16 x{n}: {r['tokens_per_s']:.1f} tokens/s, p50 "
+        log(f"[fleet] (a) bf16 x{n}: {r['tokens_per_s']:.1f} tokens/s "
+            f"({depth(cfg)}), p50 "
             f"{r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, busy share "
             f"{busy}; memory after each scale_up {r['memory']}; {smi}")
     r3 = out["bf16"][FLEET["replicas"]]
@@ -3241,7 +3322,7 @@ def phase_fleet(params, cfg) -> dict:
         f"{r3['affinity']}; prefix hit blocks per replica "
         f"{r3['prefix_hits']}")
     log(f"[fleet] (a) fp32 scaled x{FLEET['replicas']}: "
-        f"{out['fp32_a']['tokens_per_s']:.1f} tokens/s, p50 "
+        f"{out['fp32_a']['tokens_per_s']:.1f} tokens/s ({depth(cfg)}), p50 "
         f"{out['fp32_a']['p50_ms']:.1f} ms, p99 {out['fp32_a']['p99_ms']:.1f}"
         f" ms; affinity {out['fp32_a']['affinity']}; {smi}")
     for lane in ("round_trip_bf16", "round_trip_fp32"):
@@ -3273,8 +3354,8 @@ def phase_fleet(params, cfg) -> dict:
     log(f"[fleet] (h) chaos {out['chaos']} in {out['chaos_s']:.1f} s")
     for name, ok in checks.items():
         log(f"[fleet] check {'ok' if ok else 'FAILED'}: {name}")
-    log(f"[fleet] phase 10 wall {wall:.1f} s ({parts_s}); flash launches "
-        f"{launches}")
+    log(f"[fleet] phase 10 wall {wall:.1f} s at {depth(cfg)} ({parts_s}); "
+        f"flash launches {launches}")
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"phase 10 checks failed: {failed}")
@@ -4113,7 +4194,11 @@ def phase_telemetry(trial) -> dict:
 # two of them: the depth is cut so that the whole script,
 # phase 15 included, keeps its margin to the run's time limit
 SEARCH = {"name": "asha", "max_trials": 2, "num_rungs": 2, "divisor": 2,
-          "max_length": {"batches": 20}, "max_concurrent_trials": 2}
+          "max_length": {"batches": 10}, "max_concurrent_trials": 2}
+# the rungs: rung 1 trains to max_length, rung 0 to max_length / divisor
+# (the scheduling unit): 5 and 10 batches, for the script's time budget
+SEARCH_FULL = SEARCH["max_length"]["batches"]
+SEARCH_RUNG0 = SEARCH_FULL // SEARCH["divisor"]
 SEARCH_LR = {"type": "log", "base": 10, "minval": -4.5, "maxval": -3.0}
 
 
@@ -4216,7 +4301,7 @@ def phase_search() -> dict:
     storage = tempfile.mkdtemp(prefix="chip-smoke-search-")
     hparams = dict(GPT_FSDP_HPARAMS, lr=SEARCH_LR)
     raw = {"searcher": {**SEARCH, "metric": metric},
-           "scheduling_unit": 10, "max_restarts": 1,
+           "scheduling_unit": SEARCH_RUNG0, "max_restarts": 1,
            "checkpoint_storage": {"type": "shared_fs", "host_path": storage},
            "hyperparameters": hparams,
            "resources": {"slots_per_trial": 1},
@@ -4244,12 +4329,14 @@ def phase_search() -> dict:
                    for rid, t in trials.items()}
         registry = core.LocalCheckpointRegistry(
             os.path.join(storage, "checkpoints.jsonl")).list()
-        promoted = [t for t in trials.values() if t.units_done == 20]
+        promoted = [t for t in trials.values()
+                    if t.units_done == SEARCH_FULL]
         best = min(promoted, key=lambda t: t.best_metric)
         restarted = [t for t in trials.values() if t.restarts]
 
         # (b) the unbroken witness of the best promoted trial's hparams
-        witness = fit_trial(storage + "-witness", 20, hparams=best.hparams,
+        witness = fit_trial(storage + "-witness", SEARCH_FULL,
+                            hparams=best.hparams,
                             extra={"checkpoint_policy": "none"})
         with core.init(config=None, storage_path=storage) as ctx:
             with ctx.checkpoint.restore_path(best.latest_checkpoint) as path:
@@ -4320,26 +4407,29 @@ def phase_search() -> dict:
             and ops[-1]["type"] == "shutdown"),
         "(a) every trial completed": all(
             t.state == "completed" for t in trials.values()),
-        "(a) a trial promoted from rung 0 (10) to rung 1 (20)": bool(
-            promoted) and all(t.units_done in (10, 20)
-                              for t in trials.values()),
+        f"(a) a trial promoted from rung 0 ({SEARCH_RUNG0}) to rung 1 "
+        f"({SEARCH_FULL})": bool(promoted) and all(
+            t.units_done in (SEARCH_RUNG0, SEARCH_FULL)
+            for t in trials.values()),
         "(a) each promoted leg resumed its own checkpoint: registry "
-        "trial_id = request_id, reports at 10 then 20": all(
+        f"trial_id = request_id, reports at {SEARCH_RUNG0} then "
+        f"{SEARCH_FULL}": all(
             [r["steps_completed"] for r in records[t.request_id]
-             if r["group"] == "training"] == [10, 20]
+             if r["group"] == "training"] == [SEARCH_RUNG0, SEARCH_FULL]
             and [r["steps_completed"] for r in records[t.request_id]
-                 if r["group"] == "validation"] == [10, 20]
+                 if r["group"] == "validation"] == [SEARCH_RUNG0,
+                                                    SEARCH_FULL]
             and [r.get("trial_id") for r in registry
                  if r["storage_id"] == t.latest_checkpoint]
             == [t.request_id]
             for t in promoted),
         "(b) the best promoted trial's metric and state equal an unbroken "
-        "20-batch run bit for bit": (
+        f"{SEARCH_FULL}-batch run bit for bit": (
             best.last_metric == witness_metric and bitwise
-            and loaded_step == (20, 20)),
+            and loaded_step == (SEARCH_FULL, SEARCH_FULL)),
         "(c) the first promoted leg restarted once from its checkpoint": (
             len(restarted) == 1 and restarted[0].restarts == 1
-            and restarted[0].units_done == 20
+            and restarted[0].units_done == SEARCH_FULL
             and restarted[0].hparams == trial_cls.failed[0]
             and runner.registry.counter("trial_restarts_total").value == 1),
         "(d) the recorded events replayed into a fresh searcher give the "
@@ -4364,7 +4454,8 @@ def phase_search() -> dict:
     for rid, t in sorted(trials.items()):
         log(f"[search] trial {rid}: hparams lr {t.hparams['lr']:.6g} (the "
             f"rest GPT_FSDP_HPARAMS), rung "
-            f"{0 if t.units_done == 10 else 1} ({t.units_done} batches), "
+            f"{0 if t.units_done == SEARCH_RUNG0 else 1} ({t.units_done} "
+            f"batches), "
             f"legs {sum(1 for sp in leg_spans if sp['args'].get('trial_id') == rid)}"
             f", restarts {t.restarts}, {metric} "
             + ", ".join(f"{r['metrics']['loss']:.4f}@{r['steps_completed']}"
@@ -4400,7 +4491,7 @@ def phase_search() -> dict:
 
 # phase 15: the managed-cluster slice — the C++ master, the port's agent on
 # the card, a GPT-124M trial submitted through the port's CLI
-MANAGED_BATCHES, UNMANAGED_BATCHES = 20, 8
+MANAGED_BATCHES, UNMANAGED_BATCHES = 20, 4
 MANAGED_MODEL_DEF = """\
 import atexit
 
@@ -4508,7 +4599,7 @@ def phase_managed(master_build, search, cluster=None) -> dict:
     port's CLI (``experiment create <cfg> <model_dir> -f`` in a
     subprocess), paused once its first checkpoint is registered and
     activated, held against an unbroken in-process ``fit_trial`` of the
-    same config; (c) ``core.init_unmanaged`` around 8 steps of the same
+    same config; (c) ``core.init_unmanaged`` around 4 steps of the same
     trial in this process; (d) the phase's timings. With a ``cluster``
     dict the cluster stays up for phase 16, which reads it from there,
     and ``close_cluster(cluster)`` takes it down; without one it goes
@@ -4626,7 +4717,7 @@ def phase_managed(master_build, search, cluster=None) -> dict:
                                    "checkpoint_policy": "none"})
         witness["state"] = None
 
-        # (c) the unmanaged run: 8 steps in this process, reporting in
+        # (c) the unmanaged run: a few steps in this process, reporting in
         ucfg = managed_config(os.path.join(base, "unmanaged"),
                               UNMANAGED_BATCHES, name="gpt-124m-unmanaged")
         ucfg.pop("entrypoint")
@@ -4732,7 +4823,8 @@ def phase_managed(master_build, search, cluster=None) -> dict:
         "(c) the unmanaged experiment COMPLETED": (
             u_detail["experiment"]["state"] == "COMPLETED"
             and uresult["batches_trained"] == UNMANAGED_BATCHES),
-        "(c) its 8 losses equal (b)'s first 8 bit for bit": (
+        f"(c) its {UNMANAGED_BATCHES} losses equal (b)'s first "
+        f"{UNMANAGED_BATCHES} bit for bit": (
             u_train == train[:UNMANAGED_BATCHES]),
         "every reported loss finite": all(
             math.isfinite(x) for _, x in train + val + u_train),
@@ -4752,7 +4844,8 @@ def phase_managed(master_build, search, cluster=None) -> dict:
         + (f"{share14:.3f}" if share14 is not None else "not run")
         + f"); flash launches per leg {launches_by_leg}; checkpoints "
         f"{len(ckpts)} listed, GC task {gc_task['id']} exit "
-        f"{gc_task['exit_code']}; unmanaged 8 steps {unmanaged_s:.1f} s, "
+        f"{gc_task['exit_code']}; unmanaged {UNMANAGED_BATCHES} steps "
+        f"{unmanaged_s:.1f} s, "
         f"{unmanaged_launches} flash launches")
     log(f"[managed] training loss " + ", ".join(
         f"{x:.4f}@{s}" for s, x in train) + "; validation " + ", ".join(
@@ -5020,10 +5113,9 @@ def rest_fleet(cluster) -> dict:
         def sample():
             while not stop.is_set():
                 fleet.sample_telemetry()
-                # the fleet's SLO gauges (dct_slo_*) for the stock rules,
-                # as the master's own (its registry renders NaN, which a
-                # component's snapshot in the aggregator cannot)
-                fleet.slo.publish(master.aggregator.registry)
+                # the fleet's registry, its SLO gauges (dct_slo_*, NaN
+                # before the first request) with it, as a component
+                master.aggregator.ingest_component("fleet", fleet.registry)
                 tick = master.scrape_tick()
                 ticks.append((time.monotonic(), set(fleet.replica_ids()),
                               {r["name"]: r["state"]
@@ -5272,6 +5364,363 @@ def phase_rest(cluster) -> dict:
             "checks": checks}
 
 
+# -- phase 17: storage and batch inference ------------------------------------
+
+STORAGE = {"batch": 8, "seq": 1024, "max_steps": 12, "join_s": 120.0,
+           "infer_seqs": 256, "infer_len": 128,
+           "infer_batch": 32, "infer_ckpt_every": 2, "preempt_at": 3,
+           "tune_seq": 64}
+
+
+def _tree_bits_equal(a, b) -> bool:
+    from determined_clone_tpu_torch.core._serialization import (
+        tree_paths_and_leaves,
+    )
+
+    import numpy as np
+    import torch
+
+    def same(x, y) -> bool:
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            return (x.dtype == y.dtype and x.shape == y.shape
+                    and equal_bits(x.detach(), y.detach()))
+        return np.array_equal(np.asarray(x), np.asarray(y))
+
+    la, lb = tree_paths_and_leaves(a), tree_paths_and_leaves(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        same(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def _manifest_files(ctx, sid, tmp) -> dict:
+    """A checkpoint's manifest table (sizes and sha256 of its files)."""
+    dst = os.path.join(tmp, f"manifest-{sid}")
+    ctx.checkpoint._storage.download(sid, dst, paths=["manifest.json"])
+    with open(os.path.join(dst, "manifest.json")) as f:
+        return json.load(f)["files"]
+
+
+def storage_async(tmp) -> dict:
+    """(a) A Core API loop at phase 7's widths: a blocking ``store_path``
+    save of the state, then ``store_path_async`` of the same state while
+    the loop keeps stepping; the async checkpoint registered by
+    ``wait_async`` equal to the blocking one file for file."""
+    import torch
+
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.core._serialization import save_pytree
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = gpt.GPTConfig()
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state, step = train_setup(cfg, params)
+    del params
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (STORAGE["batch"], STORAGE["seq"] + 1),
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(3))
+    exp = ExperimentConfig.from_dict({"checkpoint_storage": {
+        "type": "shared_fs", "host_path": os.path.join(tmp, "a")}})
+    out: dict = {}
+    with core.init(config=exp, trial_id=1) as ctx:
+        state, m = step(state, tokens)
+        float(m["loss"])
+        meta = {"steps_completed": 1}
+        t0 = time.monotonic()
+        with ctx.checkpoint.store_path(meta) as (path, holder):
+            save_pytree(os.path.join(path, "state"), state)
+        out["blocking_s"] = time.monotonic() - t0
+        sync_id = holder["storage_id"]
+        t0 = time.monotonic()
+        with ctx.checkpoint.store_path_async(meta) as (path, holder):
+            save_pytree(os.path.join(path, "state"), state)
+        out["caller_s"] = time.monotonic() - t0
+        async_id = holder["storage_id"]
+        upload = ctx.checkpoint._pending[-1]["thread"]
+        flash_attention.launches = 0
+        steps = in_flight = 0
+        t0 = time.monotonic()
+        while steps < STORAGE["max_steps"] and (
+                upload.is_alive() or steps < 2):
+            if upload.is_alive():
+                in_flight += 1
+            state, m = step(state, tokens)
+            float(m["loss"])
+            steps += 1
+        out["steps_s"] = time.monotonic() - t0
+        launches = flash_attention.launches
+        upload.join(STORAGE["join_s"])
+        out["upload_joined"] = not upload.is_alive()
+        published = (ctx.checkpoint.wait_async()
+                     if out["upload_joined"] else [])
+        out["upload_s"] = time.monotonic() - t0
+        registered = ctx.checkpoint.committed_checkpoints()
+        files_sync = _manifest_files(ctx, sync_id, tmp)
+        files_async = _manifest_files(ctx, async_id, tmp)
+        out["bytes"] = sum(f["size"] for f in files_async.values())
+    out.update(steps=steps, steps_in_flight=in_flight, launches=launches)
+    per_step = 2 * cfg.n_layers
+    out["checks"] = {
+        "(a) the upload thread joined within its deadline":
+            out["upload_joined"],
+        "(a) a step dispatched while the async upload was in flight":
+            in_flight >= 1,
+        "(a) wait_async published the async checkpoint, now registered":
+            published == [async_id] and async_id in registered,
+        "(a) the async checkpoint equals the blocking save file for file "
+        "(sizes and sha256)": files_async == files_sync,
+        f"(a) {per_step} flash launches per step (2 * n_layers)":
+            launches == per_step * steps,
+    }
+    log(f"[storage] (a) blocking save {out['blocking_s']:.2f} s; async "
+        f"caller thread {out['caller_s']:.2f} s, upload done "
+        f"{out['upload_s']:.2f} s after it; {steps} steps, {in_flight} "
+        f"dispatched in flight; {out['bytes']} bytes; launches {launches}")
+    return out
+
+
+def storage_cas(tmp) -> dict:
+    """(b) The same state saved twice through ``type: cas``: the second
+    save writes no chunk bytes, the restore is bit for bit, and
+    ``checkpoint stats`` shows the dedup."""
+    import torch
+
+    from determined_clone_tpu_torch import core
+    from determined_clone_tpu_torch.config import ExperimentConfig
+    from determined_clone_tpu_torch.core._serialization import save_pytree
+    from determined_clone_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig()
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state, _ = train_setup(cfg, params)
+    del params
+    block = {"type": "cas", "inner": {"type": "shared_fs",
+                                      "host_path": os.path.join(tmp, "b")}}
+    exp = ExperimentConfig.from_dict({"checkpoint_storage": block})
+    out: dict = {"saves": []}
+    with core.init(config=exp, trial_id=1) as ctx:
+        store = ctx.checkpoint._storage
+        sids, store_stats = [], []
+        for i in range(2):
+            before = dict(store.session_stats)
+            t0 = time.monotonic()
+            with ctx.checkpoint.store_path({"save": i}) as (path, holder):
+                save_pytree(os.path.join(path, "state"), state)
+            sids.append(holder["storage_id"])
+            out["saves"].append({
+                "s": time.monotonic() - t0,
+                "bytes_uploaded": store.session_stats["bytes_uploaded"]
+                - before["bytes_uploaded"],
+                "bytes_deduped": store.session_stats["bytes_deduped"]
+                - before["bytes_deduped"]})
+            store_stats.append(store.storage_stats())
+        t0 = time.monotonic()
+        with ctx.checkpoint.restore_path(sids[1]) as path:
+            loaded = core.load_pytree(os.path.join(path, "state"), state)
+        out["restore_s"] = time.monotonic() - t0
+        bitwise = _tree_bits_equal(state, loaded)
+        del loaded
+    import io
+
+    from determined_clone_tpu_torch.cli import main as cli_main
+
+    yaml_path = os.path.join(tmp, "cas.yaml")
+    with open(yaml_path, "w") as f:
+        json.dump({"checkpoint_storage": block}, f)  # JSON is YAML
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli_main(["checkpoint", "stats", "--config", yaml_path])
+    stats = json.loads(printed.getvalue()) if rc == 0 else {}
+    out["stats"] = {k: stats.get(k) for k in (
+        "cas_checkpoints", "chunk_count", "chunk_bytes", "logical_bytes",
+        "dedup_ratio")}
+    first, second = out["saves"]
+    # the state dedups within itself too (Adam's moments start at zero),
+    # so the second save shows as logical bytes doubled over the same
+    # chunk bytes, and the CLI reads what the store reported
+    one, two = store_stats
+    keys = ("cas_checkpoints", "chunk_count", "chunk_bytes", "logical_bytes")
+    out["checks"] = {
+        "(b) the second cas save uploads no chunk bytes":
+            second["bytes_uploaded"] == 0 and second["bytes_deduped"] > 0,
+        "(b) the cas restore equals the state bit for bit": bitwise,
+        "(b) checkpoint stats: 2 checkpoints, the logical bytes doubled "
+        "over the first save's chunk bytes":
+            rc == 0 and stats.get("cas_checkpoints") == 2
+            and stats.get("chunk_bytes") == one["chunk_bytes"]
+            == first["bytes_uploaded"]
+            and stats.get("logical_bytes") == 2 * one["logical_bytes"]
+            and {k: stats.get(k) for k in keys}
+            == {k: two[k] for k in keys},
+    }
+    log(f"[storage] (b) cas saves {first['s']:.2f} s "
+        f"({first['bytes_uploaded']} bytes uploaded), {second['s']:.2f} s "
+        f"({second['bytes_uploaded']} uploaded, {second['bytes_deduped']} "
+        f"deduped); restore {out['restore_s']:.2f} s; checkpoint stats "
+        f"{out['stats']}")
+    return out
+
+
+def storage_batch_inference(tmp) -> dict:
+    """(c) ``torch_batch_process`` over ``GPTConfig()``'s uncached
+    forward, preempted once and resumed, against an unbroken run."""
+    import torch
+
+    from determined_clone_tpu_torch import batch_inference, core
+    from determined_clone_tpu_torch.models import gpt
+    from determined_clone_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = gpt.GPTConfig()
+    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    data = torch.randint(0, cfg.vocab_size, (STORAGE["infer_seqs"],
+                                             STORAGE["infer_len"]),
+                         device="cuda", generator=torch.Generator(
+                             device="cuda").manual_seed(5))
+
+    def processor(outputs):
+        class Greedy(batch_inference.BatchProcessor):
+            @torch.no_grad()
+            def process_batch(self, batch, batch_idx):
+                logits = gpt.apply(params, cfg, batch)
+                best = logits.max(dim=-1)
+                outputs[batch_idx] = (best.indices.cpu(), best.values.cpu())
+
+        return Greedy
+
+    class PreemptAt:
+        """ctx.preempt's answer: yes at the n-th question."""
+
+        def __init__(self, n):
+            self.n, self.asked = n, 0
+
+        def should_preempt(self):
+            self.asked += 1
+            return self.asked >= self.n
+
+        def close(self):
+            pass
+
+    def run(storage, outputs, preempt_at=None, latest=None):
+        with core.init(storage_path=storage) as ctx:
+            if preempt_at is not None:
+                ctx.preempt.close()
+                ctx.preempt = PreemptAt(preempt_at)
+            return batch_inference.torch_batch_process(
+                processor(outputs), data,
+                batch_size=STORAGE["infer_batch"],
+                checkpoint_interval=STORAGE["infer_ckpt_every"],
+                core_context=ctx, latest_checkpoint=latest)
+
+    flash_attention.launches = 0
+    t0 = time.monotonic()
+    whole: dict = {}
+    unbroken = run(os.path.join(tmp, "c1"), whole)
+    out: dict = {"unbroken_s": time.monotonic() - t0}
+    t0 = time.monotonic()
+    parts: dict = {}
+    first = run(os.path.join(tmp, "c2"), parts, STORAGE["preempt_at"])
+    second = run(os.path.join(tmp, "c2"), parts,
+                 latest=first["storage_id"])
+    out["resumed_s"] = time.monotonic() - t0
+    launches = flash_attention.launches
+    n_batches = STORAGE["infer_seqs"] // STORAGE["infer_batch"]
+    same = sorted(whole) == sorted(parts) == list(range(n_batches)) and all(
+        torch.equal(whole[i][0], parts[i][0])
+        and equal_bits(whole[i][1], parts[i][1]) for i in whole)
+    calls = unbroken["batches_processed"] + first["batches_processed"] + (
+        second["batches_processed"] - first["batches_processed"])
+    out.update(launches=launches, batches=calls, preempted_after=first[
+        "batches_processed"], tokens_per_s=STORAGE["infer_seqs"]
+        * STORAGE["infer_len"] / out["unbroken_s"])
+    out["checks"] = {
+        "(c) the preempted run stopped early and resumed to the end":
+            first["preempted"] and 0 < first["batches_processed"]
+            < n_batches and second["batches_processed"] == n_batches
+            and not second["preempted"],
+        "(c) outputs after the resume equal the unbroken run's":
+            same and unbroken["batches_processed"] == n_batches,
+        f"(c) {cfg.n_layers} flash launches per batch (n_layers)":
+            launches == cfg.n_layers * calls,
+    }
+    log(f"[storage] (c) batch inference: {n_batches} batches of "
+        f"{STORAGE['infer_batch']} x {STORAGE['infer_len']} in "
+        f"{out['unbroken_s']:.2f} s ({out['tokens_per_s']:.0f} tokens/s); "
+        f"preempted after {first['batches_processed']} and resumed in "
+        f"{out['resumed_s']:.2f} s; launches {launches}")
+    return out
+
+
+def storage_autotune() -> dict:
+    """(d) ``autotune`` with ``make_gpt_measure`` at its own config over
+    a one-rank NCCL world on the card."""
+    from determined_clone_tpu_torch import autotune
+    from determined_clone_tpu_torch.autotune.gpt_bench import (
+        make_gpt_measure,
+    )
+    from determined_clone_tpu_torch.exec import launch
+
+    launch.init_rank(0, 1, device="cuda")
+    try:
+        t0 = time.monotonic()
+        results = autotune.autotune(
+            make_gpt_measure(seq_len=STORAGE["tune_seq"]), 1,
+            remat_options=(True, False))
+        wall = time.monotonic() - t0
+    finally:
+        launch.shutdown()
+    want = {(json.dumps(m), r) for m in autotune.mesh_candidates(1)
+            for r in (True, False)}
+    got = {(json.dumps(r.mesh), r.remat) for r in results}
+    rates = [r.samples_per_sec for r in results]
+    rows = [dataclasses.asdict(r) for r in results]
+    checks = {
+        "(d) autotune measured every candidate of mesh_candidates(1) x "
+        "remat": got == want and len(results) == len(want)
+        and all(r.feasible for r in results),
+        "(d) autotune results sorted, best first":
+            rates == sorted(rates, reverse=True),
+    }
+    log(f"[storage] (d) autotune in {wall:.2f} s: " + "; ".join(
+        f"{r.mesh} remat={r.remat}: {r.samples_per_sec:.1f} samples/s"
+        for r in results))
+    return {"results": rows, "wall_s": wall, "checks": checks}
+
+
+def phase_storage() -> dict:
+    """Phase 17: storage and batch inference on the card — (a) async
+    saves, (b) the CAS store, (c) batch inference, (d) autotune; each
+    check failing the run."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dct-phase17-") as tmp:
+        parts = {"async": storage_async(tmp)}
+        torch.cuda.empty_cache()
+        parts["cas"] = storage_cas(tmp)
+        torch.cuda.empty_cache()
+        parts["batch_inference"] = storage_batch_inference(tmp)
+        torch.cuda.empty_cache()
+        parts["autotune"] = storage_autotune()
+    checks = {}
+    for part in parts.values():
+        checks.update(part.pop("checks"))
+    for name, ok in checks.items():
+        log(f"[storage] check {'ok' if ok else 'FAILED'}: {name}")
+    phase_s = time.monotonic() - t_phase
+    log(f"[storage] phase 17 wall {phase_s:.1f} s")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 17 checks failed: {failed}")
+    return {**parts, "phase_s": phase_s, "checks": checks,
+            "launches": {"async_steps": parts["async"]["launches"],
+                         "batch_inference":
+                             parts["batch_inference"]["launches"]}}
+
+
 class _Tok:
     """A /v1/generate reply as check_greedy reads a result."""
 
@@ -5294,7 +5743,35 @@ def kernel_entry(case: dict) -> dict:
             "library_ms": case["library_ms"]}
 
 
+class _Phases:
+    """Each phase's wall: ``[phase N] start at <s>`` when it starts (from
+    the script's start), its seconds kept for the ``[phases]`` line."""
+
+    def __init__(self, t_script: float) -> None:
+        self.t_script = t_script
+        self.walls: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, n: int):
+        t0 = time.monotonic()
+        log(f"[phase {n}] start at {t0 - self.t_script:.1f} s")
+        try:
+            yield
+        finally:
+            self.walls[str(n)] = round(time.monotonic() - t0, 1)
+
+
 def main(argv) -> int:
+    # a run that reaches WATCHDOG_S dumps every thread's stack to stderr
+    # and exits non-zero, rather than being cut off silently
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    try:
+        return _main(argv)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -5304,46 +5781,68 @@ def main(argv) -> int:
 
     quick = "--quick" in argv
     t_script = time.monotonic()
+    phase = _Phases(t_script)
     master_build = None if quick else _MasterBuild()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    report = {"build": phase_build(),
-              "kernels": phase_kernels(timed=not quick)}
+    report = {}
+    with phase(1):
+        report["build"] = phase_build()
+    with phase(2):
+        report["kernels"] = phase_kernels(timed=not quick)
     if quick:
         log("[quick] every kernel case agrees with its plain version")
         return 0
 
     cfg = gpt.GPTConfig()
-    t0 = time.monotonic()
-    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
-    log(f"[init] GPTConfig(): {gpt.param_count(params)} params in "
-        f"{time.monotonic() - t0:.2f} s")
-    report["forward"] = phase_forward(params, cfg)
-    report["engine"] = phase_engine(params, cfg)
-    report["profile"] = phase_profile(params, cfg, report["engine"]["wall_s"])
+    with phase(3):
+        t0 = time.monotonic()
+        params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        log(f"[init] GPTConfig(): {gpt.param_count(params)} params in "
+            f"{time.monotonic() - t0:.2f} s")
+        report["forward"] = phase_forward(params, cfg)
+    with phase(4):
+        report["engine"] = phase_engine(params, cfg)
+    with phase(5):
+        report["profile"] = phase_profile(params, cfg,
+                                          report["engine"]["wall_s"])
     del params
-    report["attention_grad"] = phase_attention_grad()
-    report["train"] = phase_train()
-    report["trial"] = phase_trial(report["train"]["samples_per_s"])
-    report["families"] = phase_families()
-    cfg = gpt.GPTConfig()
-    params = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg)
-    report["serving"] = phase_serving(params, cfg)
-    report["fleet"] = phase_fleet(params, cfg)
+    with phase(6):
+        report["attention_grad"] = phase_attention_grad()
+        report["train"] = phase_train()
+    with phase(7):
+        report["trial"] = phase_trial(report["train"]["samples_per_s"])
+    with phase(8):
+        report["families"] = phase_families()
+    # phases 9 and 10 at SERVE_LAYERS of the 12 layers, at full width
+    cfg = gpt.GPTConfig(n_layers=SERVE_LAYERS)
+    with phase(9):
+        params = serving_params(0, cfg)
+        report["serving"] = phase_serving(params, cfg)
+    with phase(10):
+        report["fleet"] = phase_fleet(params, cfg)
     del params
-    report["parallel"] = phase_parallel(report["trial"]["legs"]["leg1"])
-    report["second_half"] = phase_second_half(report["train"])
-    report["telemetry"] = phase_telemetry(report["trial"]["legs"])
-    report["search"] = phase_search()
+    with phase(11):
+        report["parallel"] = phase_parallel(report["trial"]["legs"]["leg1"])
+    with phase(12):
+        report["second_half"] = phase_second_half(report["train"])
+    with phase(13):
+        report["telemetry"] = phase_telemetry(report["trial"]["legs"])
+    with phase(14):
+        report["search"] = phase_search()
     cluster: dict = {}
     try:
-        report["managed"] = phase_managed(master_build, report["search"],
-                                          cluster)
-        report["rest"] = phase_rest(cluster)
+        with phase(15):
+            report["managed"] = phase_managed(master_build, report["search"],
+                                              cluster)
+        with phase(16):
+            report["rest"] = phase_rest(cluster)
     finally:
         close_cluster(cluster)
+    with phase(17):
+        report["storage"] = phase_storage()
 
     smi = card_line()
     # the main path's case (bf16 at the GPT width) and, beside it, the
@@ -5366,14 +5865,17 @@ def main(argv) -> int:
         "managed_launches": report["managed"]["launches"],
         "sdk_launches": report["rest"]["sdk"]["launches"],
         "fleet_master_launches": report["rest"]["fleet"]["launches"],
+        "storage_launches": report["storage"]["launches"],
         **kernel_entry(cases["gpt_width_bf16_causal"]),
         "fp32": kernel_entry(cases["gpt_width_fp32_causal"])}]
     report["card"] = smi
+    report["phases"] = phase.walls
     report["wall_s"] = time.monotonic() - t_script
     log(f"[env] whole script {report['wall_s']:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    log(f"[phases] {json.dumps(phase.walls)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,15 +29,21 @@ download with the allocation token, the ``DCT_*`` task environment,
   and its shipped log names the missing module and its ``ROADMAP.md``
   item; it never falls back to the JAX module.
 - **Runtimes.** ``process`` (the task dies with the agent:
-  ``PR_SET_PDEATHSIG``) and ``container`` (a detached supervisor,
+  ``PR_SET_PDEATHSIG``), ``container`` (a detached supervisor,
   ``supervisor.py``, records the exit code; a restarted agent re-adopts
   surviving tasks from its state file, matching ``DCT_ALLOCATION_ID`` in
-  ``/proc/<pid>/environ``). The ``docker`` runtime is not ported.
+  ``/proc/<pid>/environ``) and ``docker`` (the container runtime with
+  the task inside ``docker run``, the argv of the C++ agent's
+  ``docker_run_argv``; see :func:`docker_run_argv` for how the task's
+  cards reach the container; a kill runs ``docker kill``; reattach
+  matches the docker CLI by the container name in its
+  ``/proc/<pid>/cmdline``).
 
 Started as ``python -m determined_clone_tpu_torch.agent`` with the C++
 agent's flags (``--master-host``, ``--master-port``, ``--id``,
 ``--resource-pool``, ``--slots``, ``--topology``, ``--work-dir``,
-``--runtime``, ``--config``) and ``--device cpu`` for tests.
+``--runtime``, ``--docker-image``, ``--config``) and ``--device cpu`` for
+tests.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 SUPERVISOR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "supervisor.py")
-RUNTIMES = ("process", "container")
+RUNTIMES = ("process", "container", "docker")
 # JAX modules the port has no entry point for, by their ROADMAP.md item
 # (any other missing module names Queue 1 as a whole)
 NOT_PORTED = {
@@ -82,6 +88,7 @@ class AgentConfig:
     heartbeat_sec: float = 1.0
     work_dir: str = "."
     runtime: str = "process"
+    docker_image: str = "python:3.11-slim"
     device: str = "cuda"
 
 
@@ -185,16 +192,56 @@ def pid_alive(pid: int) -> bool:
         return False
 
 
+def _proc_entries(pid: int, name: str) -> List[bytes]:
+    try:
+        with open(f"/proc/{pid}/{name}", "rb") as f:
+            return f.read().split(b"\0")
+    except OSError:
+        return []
+
+
 def proc_matches_task(pid: int, allocation_id: str) -> bool:
     """Pid-reuse-proof identity: the exec'd task carries
     ``DCT_ALLOCATION_ID`` in ``/proc/<pid>/environ`` (readable only for
-    processes of the agent's own user)."""
-    try:
-        with open(f"/proc/{pid}/environ", "rb") as f:
-            entries = f.read().split(b"\0")
-    except OSError:
-        return False
-    return f"DCT_ALLOCATION_ID={allocation_id}".encode() in entries
+    processes of the agent's own user). The docker runtime's task pid is
+    the docker CLI, whose environment has no task variables but whose
+    cmdline names the container: ``--name dct-task-<alloc>``."""
+    if (f"DCT_ALLOCATION_ID={allocation_id}".encode()
+            in _proc_entries(pid, "environ")):
+        return True
+    return container_name(allocation_id).encode() in _proc_entries(
+        pid, "cmdline")
+
+
+def container_name(allocation_id: str) -> str:
+    return f"dct-task-{allocation_id}"
+
+
+def docker_run_argv(alloc_id: str, image: str, work_dir: str,
+                    task_cwd: str, env: Dict[str, str], cards: List[str],
+                    argv: List[str]) -> List[str]:
+    """``docker run`` of one task, laid out as the C++ agent's
+    ``docker_run_argv`` (``agent/src/docker.h``): ``--rm``, the container
+    named ``dct-task-<alloc>``, host networking (rendezvous addresses are
+    host addresses), the work dir mounted at its own path (logs and run
+    dirs), ``-w`` the task's cwd, the devices, one ``-e K=V`` per variable
+    in key order, the image, the task's argv.
+
+    The devices: where the C++ agent passes every ``/dev/accel*`` file
+    (a TPU host runs one task on every chip), the container gets the
+    task's own cards as ``--gpus "device=<its CUDA_VISIBLE_DEVICES>"``
+    (the NVIDIA container runtime's device request; the quotes keep a
+    list of several cards one field), and no ``--gpus`` at all for a
+    zero-slot task. Inside the container those cards are numbered from
+    0, so the caller passes ``CUDA_VISIBLE_DEVICES=0..n-1`` in ``env``."""
+    out = ["docker", "run", "--rm", "--name", container_name(alloc_id),
+           "--network", "host", "-v", f"{work_dir}:{work_dir}",
+           "-w", task_cwd]
+    if cards:
+        out += ["--gpus", f'"device={",".join(cards)}"']
+    for key in sorted(env):
+        out += ["-e", f"{key}={env[key]}"]
+    return out + [image, *argv]
 
 
 def _die_with_parent() -> None:
@@ -212,14 +259,14 @@ class Agent:
     def __init__(self, config: AgentConfig) -> None:
         if config.runtime not in RUNTIMES:
             raise ValueError(
-                f"unknown runtime {config.runtime!r} (the port's agent runs "
-                f"{'|'.join(RUNTIMES)}; docker is ROADMAP.md, Queue 1, item "
-                f"3.4)")
+                f"unknown runtime {config.runtime!r} "
+                f"({'|'.join(RUNTIMES)})")
         self.config = config
         self.tasks: Dict[str, RunningTask] = {}
         self.pending_exits: List[Dict[str, Any]] = []
         self.cards: List[str] = []
         self.free_cards: List[str] = []
+        self._kill_helpers: List[subprocess.Popen] = []
 
     # -- setup ----------------------------------------------------------------
 
@@ -375,11 +422,18 @@ class Agent:
 
     def task_env(self, cmd: Dict[str, Any], alloc_id: str,
                  cards: List[str]) -> Dict[str, str]:
-        """The ``DCT_*`` environment of the C++ agent's ``task_env``, over
-        the agent's own, plus the task's ``CUDA_VISIBLE_DEVICES`` (and
-        ``DCT_DEVICE=cpu`` under ``--device cpu``)."""
+        """The task's variables (:meth:`task_vars`) over the agent's own
+        environment: what a ``process`` or ``container`` task sees."""
+        return {**os.environ, **self.task_vars(cmd, alloc_id, cards)}
+
+    def task_vars(self, cmd: Dict[str, Any], alloc_id: str,
+                  cards: List[str]) -> Dict[str, str]:
+        """The ``DCT_*`` environment of the C++ agent's ``task_env``, the
+        spec's ``env``, the task's ``CUDA_VISIBLE_DEVICES`` (and
+        ``DCT_DEVICE=cpu`` under ``--device cpu``): all a ``docker`` task
+        sees, as ``-e`` flags."""
         c = self.config
-        env = dict(os.environ)
+        env: Dict[str, str] = {}
         env.update({
             "DCT_MASTER_HOST": c.master_host,
             "DCT_MASTER_PORT": str(c.master_port),
@@ -455,7 +509,6 @@ class Agent:
                                                    "alloc_token", "")), 80)
             return
         run_dir = self.prepare_context(cmd, alloc_id)
-        env = self.task_env(cmd, alloc_id, cards)
         argv = self.task_argv(cmd)
         cwd = run_dir or c.work_dir
         if not argv:
@@ -464,7 +517,20 @@ class Agent:
                     f"{alloc_id}')"]
         task = RunningTask(0, alloc_id, log_path, cards,
                            alloc_token=str(cmd.get("alloc_token", "")))
-        if c.runtime == "container":
+        if c.runtime == "docker":
+            # the supervisor runs the docker CLI with the agent's own
+            # environment; the task's variables go in as -e flags, its
+            # cards numbered from 0 inside the container
+            inner = self.task_vars(cmd, alloc_id, cards)
+            inner["CUDA_VISIBLE_DEVICES"] = ",".join(
+                str(i) for i in range(len(cards)))
+            argv = docker_run_argv(
+                alloc_id, c.docker_image, c.work_dir, cwd, inner, cards,
+                ["python" if a == sys.executable else a for a in argv])
+            env = dict(os.environ)
+        else:
+            env = self.task_env(cmd, alloc_id, cards)
+        if c.runtime in ("container", "docker"):
             exit_file = self.exit_file(alloc_id)
             try:
                 os.unlink(exit_file)
@@ -508,6 +574,17 @@ class Agent:
         task = self.tasks.get(alloc_id)
         if task is None:
             return
+        if self.config.runtime == "docker":
+            # the docker CLI does not forward SIGKILL to the container;
+            # the helper is reaped by reap_tasks, never waited on here
+            try:
+                self._kill_helpers.append(subprocess.Popen(
+                    ["docker", "kill", container_name(alloc_id)],
+                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                    start_new_session=True))
+            except OSError as e:
+                print(f"[agent] docker kill {alloc_id}: {e}",
+                      file=sys.stderr, flush=True)
         target = task.task_pid or task.pid
         if target > 0:
             try:
@@ -555,6 +632,8 @@ class Agent:
               flush=True)
 
     def reap_tasks(self) -> None:
+        self._kill_helpers = [h for h in self._kill_helpers
+                              if h.poll() is None]
         changed = False
         for alloc_id, task in list(self.tasks.items()):
             if task.adopted:
@@ -677,7 +756,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topology", default=None)
     p.add_argument("--work-dir", default=None)
     p.add_argument("--runtime", default=None,
-                   help="process | container (docker: not ported)")
+                   help="process | container | docker")
+    p.add_argument("--docker-image", default=None,
+                   help="the docker runtime's image (python:3.11-slim)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cpu runs tasks on the CPU (tests); the default "
                         "needs CUDA")
@@ -686,7 +767,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 _FILE_KEYS = {"master_host": str, "master_port": int, "id": str,
               "resource_pool": str, "slots": int, "topology": str,
-              "work_dir": str, "runtime": str}
+              "work_dir": str, "runtime": str, "docker_image": str}
 
 
 def config_from_args(args: argparse.Namespace) -> AgentConfig:
@@ -694,8 +775,6 @@ def config_from_args(args: argparse.Namespace) -> AgentConfig:
     config = AgentConfig(device=args.device)
     if args.config:
         for key, value in parse_config_file(args.config).items():
-            if key == "docker_image":
-                continue  # the docker runtime is not ported
             if key not in _FILE_KEYS:
                 raise ValueError(f"unknown config key {key!r} in "
                                  f"{args.config}")

@@ -315,12 +315,48 @@ def _refuse(what: str, item: str) -> int:
     return 2
 
 
+def _cas_manager(args, what: str, needs: str, lives: str):
+    """The content-addressed store that ``--config`` (an experiment yaml's
+    ``checkpoint_storage`` block) or ``--host-path`` (a shared_fs root)
+    names; None, after a message on stderr, when there is none."""
+    from determined_clone_tpu_torch.config.experiment import (
+        CheckpointStorageConfig,
+    )
+    from determined_clone_tpu_torch.storage import CASStorageManager, build
+
+    if args.config:
+        import yaml
+
+        with open(args.config) as f:
+            doc = yaml.safe_load(f) or {}
+        raw = doc.get("checkpoint_storage") or doc
+    elif args.host_path:
+        raw = {"type": "cas",
+               "inner": {"type": "shared_fs", "host_path": args.host_path}}
+        if getattr(args, "cache_path", None):
+            raw["cache_path"] = args.cache_path
+    else:
+        print(f"{what} needs {needs}", file=sys.stderr)
+        return None
+    manager = build(CheckpointStorageConfig.from_dict(raw))
+    if not isinstance(manager, CASStorageManager):
+        print(f"checkpoint_storage type {raw.get('type')!r} is not "
+              f"content-addressed; {lives} `type: cas`", file=sys.stderr)
+        return None
+    return manager
+
+
 def cmd_checkpoint_stats(args) -> int:
-    """Dedup ratio + chunk-cache hit rate of a content-addressed store:
-    refused, the checkpoint half of the CAS store being unported."""
-    return _refuse("checkpoint stats (the content-addressed checkpoint "
-                   "store)", "item 4.3: the checkpoint half of "
-                   "storage/cas.py")
+    """Dedup ratio + chunk-cache hit rate of a content-addressed store,
+    straight from storage (no master): ``--config`` reads the
+    ``checkpoint_storage:`` block of an experiment yaml, ``--host-path``
+    (and ``--cache-path``) build one."""
+    manager = _cas_manager(args, "checkpoint stats",
+                           "--config or --host-path", "stats need")
+    if manager is None:
+        return 2
+    print_json(manager.storage_stats())
+    return 0
 
 
 def cmd_exec_cache_stats(args) -> int:
@@ -341,24 +377,21 @@ def _get_json(url: str, timeout: float = 10.0):
 def cmd_kv_stats(args: argparse.Namespace) -> int:
     """KV memory-hierarchy readout: from a live fleet front door (--url →
     the ``kv_tier`` block of GET /v1/fleet — host tier counters plus
-    nested CAS stats) or straight off a shared_fs storage root's
-    ``cas/kv/`` namespace (--host-path)."""
+    nested CAS stats) or straight off a CAS store's ``cas/kv/`` namespace
+    (--config / --host-path, as ``checkpoint stats``)."""
     if args.url:
         kv = _get_json(f"{args.url.rstrip('/')}/v1/fleet").get("kv_tier")
         if kv is None:
             print("fleet has no KV memory hierarchy (kv_store off)",
                   file=sys.stderr)
             return 2
-        print(json.dumps(kv, indent=2, sort_keys=True))
+        print_json(kv)
         return 0
-    if not args.host_path:
-        print("kv stats needs --url or --host-path", file=sys.stderr)
+    manager = _cas_manager(args, "kv stats", "--url, --config or "
+                           "--host-path", "spilled KV blocks live on")
+    if manager is None:
         return 2
-    from determined_clone_tpu_torch.storage import SharedFSStorageManager
-    from determined_clone_tpu_torch.storage.cas import KVBlobStore
-
-    stats = KVBlobStore(SharedFSStorageManager(args.host_path)).stats()
-    print(json.dumps(stats, indent=2, sort_keys=True))
+    print_json(manager.kv_store().stats())
     return 0
 
 
@@ -1730,8 +1763,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.set_defaults(func=cmd_checkpoint_download)
     c = sc.add_parser("stats",
                       help="content-addressed store dedup ratio + "
-                           "chunk-cache hit rate: not ported (ROADMAP.md, "
-                           "Queue 1, item 4.3)")
+                           "chunk-cache hit rate")
     c.add_argument("--config", default=None,
                    help="experiment config yaml with a checkpoint_storage "
                         "cas block")
@@ -1771,8 +1803,11 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--url", default=None,
                    help="fleet front-door URL (live host-tier + CAS "
                         "counters)")
+    c.add_argument("--config", default=None,
+                   help="experiment config yaml with a checkpoint_storage "
+                        "cas block")
     c.add_argument("--host-path", default=None,
-                   help="shared_fs storage root holding cas/kv/")
+                   help="shared_fs storage root (shortcut for a config)")
     c.set_defaults(func=cmd_kv_stats)
 
     # task (generic) + NTSC types

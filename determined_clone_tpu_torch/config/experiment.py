@@ -11,10 +11,9 @@ An ``observability.rules`` entry is validated by the port's own
 ``telemetry/rules.py`` (``AlertRule.from_dict``), as the JAX package
 validates it with its own.
 
-A block whose behaviour the port does not have yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item instead of
-training without it: a cloud or content-addressed ``checkpoint_storage``
-type, after the JAX package's own checks of the block.
+Every ``checkpoint_storage`` type parses as in the JAX package:
+``shared_fs``, ``directory``, ``gcs``, ``s3``, ``azure`` and ``cas``
+(storage/base.py ``build``).
 """
 from __future__ import annotations
 
@@ -185,8 +184,6 @@ class ResourcesConfig:
 # ---------------------------------------------------------------------------
 
 _STORAGE_TYPES = {"shared_fs", "directory", "gcs", "s3", "azure", "cas"}
-_PORTED_STORAGE = {"shared_fs", "directory"}
-_ROADMAP_STORAGE = "ROADMAP.md, Queue 1: the cloud storage managers"
 
 
 @dataclasses.dataclass
@@ -286,10 +283,6 @@ class CheckpointStorageConfig:
             raise ConfigError(
                 f"checkpoint_storage.transfer_workers must be >= 0, "
                 f"got {cfg.transfer_workers}")
-        if t not in _PORTED_STORAGE:
-            raise NotImplementedError(
-                f"checkpoint_storage.type {t!r} is not ported yet "
-                f"({_ROADMAP_STORAGE}); use shared_fs or directory")
         return cfg
 
     def to_dict(self) -> Dict[str, Any]:

@@ -9,8 +9,11 @@ Sharded uploads (``shard=True``) are the JAX package's: the chief
 broadcasts the storage id, every rank uploads its own files, the
 per-rank file lists are exchanged, a path written by two ranks is
 refused, and the chief writes the merged manifest. ``store_path_async``
-(the background upload) waits (``ROADMAP.md``); ``wait_async`` and
-``abort_async`` are here, with nothing ever in flight.
+is the JAX package's too: the collective part of the save runs on the
+caller's thread, the upload on a background thread, and ``wait_async``
+exchanges each checkpoint's success across the gang before the chief
+commits and publishes it; ``abort_async`` joins the uploads and
+publishes nothing.
 
 The registry (which checkpoints exist, their metadata/resources) is reported
 to the master when on-cluster; the LocalRegistry keeps the same record in a
@@ -25,6 +28,7 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 import time
 import uuid
 from typing import Any, Dict, Iterator, List, Optional
@@ -228,6 +232,9 @@ class CheckpointContext:
         self._storage = storage
         self._registry = registry or NullCheckpointRegistry()
         self._trial_id = trial_id
+        # in-flight async uploads: [{thread, error holder, storage id,
+        # metadata}], drained by wait_async or abort_async
+        self._pending: List[Dict[str, Any]] = []
 
     # -- save ---------------------------------------------------------------
 
@@ -251,38 +258,52 @@ class CheckpointContext:
             self._upload_ordered(ckpt_dir, storage_id, upload_paths)
         faults.point("checkpoint.post_upload")
         self._dist.barrier()
-        if self._dist.is_chief:
-            faults.point("checkpoint.commit")
-            self._storage.commit(storage_id, {
-                "trial_id": self._trial_id, "time": time.time()})
-            self._registry.report({
-                "storage_id": storage_id,
-                "trial_id": self._trial_id,
-                "metadata": metadata or {},
-                "time": time.time(),
-                "resources": self._storage.list_files(storage_id),
-            })
+        self._commit_and_publish(storage_id, metadata)
         return storage_id
 
-    def _coordinate(self, ckpt_dir: str, metadata: Optional[Dict[str, Any]],
+    def _commit_and_publish(self, storage_id: str,
+                            metadata: Optional[Dict[str, Any]]) -> None:
+        """Chief-only: the COMMIT marker, then the registry record.
+        Publishing strictly after commit is what lets restore trust the
+        registry."""
+        if not self._dist.is_chief:
+            return
+        faults.point("checkpoint.commit")
+        self._storage.commit(storage_id, {
+            "trial_id": self._trial_id, "time": time.time()})
+        self._registry.report({
+            "storage_id": storage_id,
+            "trial_id": self._trial_id,
+            "metadata": metadata or {},
+            "time": time.time(),
+            "resources": self._storage.list_files(storage_id),
+        })
+
+    def _coordinate(self, ckpt_dir: Optional[str],
+                    metadata: Optional[Dict[str, Any]],
                     shard: bool) -> tuple:
-        """The collective part of a save: broadcast the storage id,
-        exchange shard manifests, reject conflicts, write metadata and the
-        merged manifest. Returns (storage_id, upload_paths), upload_paths
-        None when THIS rank has nothing to upload; the chief's list leads
-        with manifest.json so partial uploads always carry their
-        manifest."""
+        """The collective part of a save, shared by the sync and async
+        paths: broadcast the storage id, exchange shard manifests, reject
+        conflicts, write metadata and the merged manifest. Returns
+        (storage_id, upload_paths), upload_paths None when THIS rank has
+        nothing to upload; the chief's list leads with manifest.json so
+        partial uploads always carry their manifest."""
         faults.point("checkpoint.pre_upload")
         storage_id = self._dist.broadcast(
             str(uuid.uuid4()) if self._dist.is_chief else None)
         if shard:
-            self._write_metadata(ckpt_dir, metadata)
-            my_files = [f for f in _relative_files(ckpt_dir)
+            if ckpt_dir:
+                self._write_metadata(ckpt_dir, metadata)
+            my_files = [f for f in (_relative_files(ckpt_dir)
+                                    if ckpt_dir else [])
                         if f not in _INTERNAL_FILES
                         and (f != METADATA_FILE or self._dist.is_chief)]
-            my_entries = _file_entries(ckpt_dir, my_files)
+            my_entries = (_file_entries(ckpt_dir, my_files)
+                          if ckpt_dir else {})
             all_entries = self._dist.allgather(my_entries)
             _check_shard_conflicts([sorted(e) for e in all_entries])
+            if not ckpt_dir:
+                return storage_id, None
             if not self._dist.is_chief:
                 return storage_id, sorted(my_files)
             merged: Dict[str, Dict[str, Any]] = {}
@@ -322,13 +343,106 @@ class CheckpointContext:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    @contextlib.contextmanager
+    def store_path_async(self, metadata: Optional[Dict[str, Any]] = None, *,
+                         shard: bool = False) -> Iterator[tuple]:
+        """Yield (local_dir, holder); on a clean exit the files are handed
+        to a background thread and the caller goes on at once, the upload
+        overlapping its next steps. ``wait_async()`` drains the uploads
+        and publishes their records.
+
+        The collective part (the storage-id broadcast, the shard-manifest
+        allgather, the conflict check) runs on the CALLER's thread before
+        the handoff, so the background thread does storage I/O only and
+        never races the training loop's own collectives. The holder
+        carries ``storage_id`` as soon as the block exits."""
+        tmp = tempfile.mkdtemp()
+        holder: Dict[str, str] = {}
+        try:
+            yield tmp, holder
+            storage_id, upload_paths = self._coordinate(tmp, metadata, shard)
+        except BaseException:
+            # nothing was handed off: the local files go with the error
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        holder["storage_id"] = storage_id
+        if upload_paths is None:  # nothing to upload from this rank
+            shutil.rmtree(tmp, ignore_errors=True)
+            # still tracked: every rank joins the wait_async exchange
+            self._pending.append({"thread": None, "error": {},
+                                  "storage_id": storage_id,
+                                  "metadata": metadata or {}})
+            return
+        error: Dict[str, BaseException] = {}
+
+        def io() -> None:
+            try:
+                self._upload_ordered(tmp, storage_id, upload_paths)
+            except BaseException as e:  # noqa: BLE001 - raised by wait_async
+                error["error"] = e
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+
+        thread = threading.Thread(target=io, daemon=True,
+                                  name="dct-async-ckpt")
+        thread.start()
+        self._pending.append({"thread": thread, "error": error,
+                              "storage_id": storage_id,
+                              "metadata": metadata or {}})
+
     def wait_async(self) -> List[str]:
-        """Drain in-flight async uploads: none exist in the port, whose
-        saves are all synchronous (``store_path_async`` waits)."""
-        return []
+        """Drain in-flight async uploads: join the I/O threads, exchange
+        each checkpoint's success across the gang (a checkpoint with ANY
+        rank's files missing is never published), then the chief commits
+        and publishes the ones every rank uploaded. Raises on a local or
+        remote failure. Returns the published storage ids, oldest first.
+        Runs before the process exits on preemption: flush, then exit."""
+        if not self._pending and self._dist.size == 1:
+            return []  # nothing in flight: no collective
+        local_failed: List[bool] = []
+        first_error: Optional[BaseException] = None
+        for entry in self._pending:
+            if entry["thread"] is not None:
+                entry["thread"].join()
+            err = entry["error"].get("error")
+            local_failed.append(err is not None)
+            if err is not None and first_error is None:
+                first_error = err
+        # the allgather is also the barrier; the flags line up because
+        # saves are collective (same count and order on every rank)
+        all_failed = self._dist.allgather(local_failed)
+        n_entries = len(self._pending)
+        aligned = all(len(flags) == n_entries for flags in all_failed)
+        drained: List[str] = []
+        if aligned:
+            for i, entry in enumerate(self._pending):
+                if any(flags[i] for flags in all_failed):
+                    continue  # incomplete on some rank: never published
+                drained.append(entry["storage_id"])
+                self._commit_and_publish(entry["storage_id"],
+                                         entry["metadata"])
+        self._pending.clear()
+        if first_error is not None:
+            raise first_error
+        if not aligned:
+            raise RuntimeError(
+                "async checkpoint drain misaligned across ranks "
+                f"({[len(f) for f in all_failed]} pending entries); "
+                "nothing was published")
+        if len(drained) != n_entries:
+            raise RuntimeError(
+                "async checkpoint upload failed on another rank; "
+                "incomplete checkpoints were not published")
+        return drained
 
     def abort_async(self) -> None:
-        """Crash-path drain; nothing is ever in flight in the port."""
+        """Crash-path drain: join the local upload threads so in-flight
+        files are whole or cleaned up, with no collective (other ranks may
+        be wedged or dead). Nothing is published."""
+        for entry in self._pending:
+            if entry["thread"] is not None:
+                entry["thread"].join()
+        self._pending.clear()
 
     def _write_metadata(self, ckpt_dir: str,
                         metadata: Optional[Dict[str, Any]]) -> None:

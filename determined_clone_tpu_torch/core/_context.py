@@ -127,8 +127,11 @@ def init(
     cleanup_dir: Optional[tempfile.TemporaryDirectory] = None
     if config.checkpoint_storage is not None:
         storage = storage_base.build(config.checkpoint_storage)
-        registry_base = (config.checkpoint_storage.host_path
-                         or config.checkpoint_storage.container_path or ".")
+        # the cas wrapper keeps its paths on the inner backend block
+        path_cfg = config.checkpoint_storage
+        if path_cfg.type == "cas" and path_cfg.inner is not None:
+            path_cfg = path_cfg.inner
+        registry_base = path_cfg.host_path or path_cfg.container_path or "."
     else:
         if storage_path is None:
             if dist.size > 1:

@@ -29,6 +29,12 @@ writes ``shard-{rank}.npz`` and ``manifest-{rank}.json``; the readers of
 both packages merge the manifests and assemble the global arrays. A
 load whose ``like`` holds DTensors places each rank's block of the
 assembled array on the same mesh and placements.
+
+The npz is ``np.savez``'s layout (one stored ``<key>.npy`` entry per
+leaf) but with every entry stamped 1980-01-01, where ``np.savez`` stamps
+the time of the save: the same state always saves to the same bytes, so
+the content-addressed store (storage/cas.py) deduplicates every chunk of
+an unchanged state. Readers of both packages load it with ``np.load``.
 """
 from __future__ import annotations
 
@@ -165,9 +171,24 @@ def save_pytree(ckpt_dir: str, tree: Any, *, host_id: int = 0) -> None:
             "dtype": str(arr.dtype),
             "blocks": [{"key": key, "index": [[0, d] for d in arr.shape]}],
         }
-    np.savez(os.path.join(ckpt_dir, f"shard-{host_id}.npz"), **arrays)
+    _write_npz(os.path.join(ckpt_dir, f"shard-{host_id}.npz"), arrays)
     with open(os.path.join(ckpt_dir, f"manifest-{host_id}.json"), "w") as f:
         json.dump(manifest, f)
+
+
+def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """``np.savez(path, **arrays)`` with a fixed entry timestamp, so the
+    bytes depend on the arrays alone."""
+    import zipfile
+
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            info = zipfile.ZipInfo(f"{key}.npy",
+                                   date_time=(1980, 1, 1, 0, 0, 0))
+            with zf.open(info, "w", force_zip64=True) as fid:
+                np.lib.format.write_array(fid, np.asanyarray(arr),
+                                          allow_pickle=False)
 
 
 def _from_numpy(arr: np.ndarray, ref: Any) -> Any:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from determined_clone_tpu_torch.models import gpt
+from determined_clone_tpu_torch.telemetry import flops
 from determined_clone_tpu_torch.training import TorchTrial
 from determined_clone_tpu_torch.training import optim
 
@@ -62,6 +63,15 @@ class GPTTrial(TorchTrial):
             optim.adamw(float(get("lr", 3e-4)), b1=0.9, b2=0.95,
                         weight_decay=float(get("weight_decay", 0.1))),
         )
+
+    def train_step_flops(self):
+        """The GPT's analytic FLOPs for one step over the global batch
+        (``telemetry.flops.gpt_train_step_flops``: every token of every
+        sample, attention included). The JAX trial gives no count, and
+        its trainer falls back to ``dense_6n`` over one token a sample,
+        1/``seq_len`` of the real figure."""
+        return flops.gpt_train_step_flops(self.cfg, self.global_batch_size,
+                                          self.seq_len)
 
     def loss(self, params, batch, seed):
         return gpt.loss_fn(params, self.cfg, batch[:, :-1], batch[:, 1:]), {}

@@ -1,6 +1,11 @@
-"""Model hub — ready-made trials for model families: the vision domain
-(ViT classification and an anchor-free single-stage detector). The
-HF-transformers trials of the JAX package's hub wait (``ROADMAP.md``)."""
+"""Model hub — ready-made trials for model families: the HF-transformers
+causal-LM trial (``huggingface.py``, transformers imported when a model
+is built) and the vision domain (ViT classification and an anchor-free
+single-stage detector)."""
+from determined_clone_tpu_torch.model_hub.huggingface import (
+    HFCausalLMTrial,
+    lm_batches,
+)
 from determined_clone_tpu_torch.model_hub.vision import (
     DetectorConfig,
     SingleStageDetectionTrial,
@@ -13,10 +18,12 @@ from determined_clone_tpu_torch.model_hub.vision import (
 
 __all__ = [
     "DetectorConfig",
+    "HFCausalLMTrial",
     "SingleStageDetectionTrial",
     "ViTClassificationTrial",
     "detection_loss",
     "detector_apply",
     "detector_init",
+    "lm_batches",
     "synthetic_detection_batches",
 ]

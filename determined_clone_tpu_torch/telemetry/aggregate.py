@@ -61,7 +61,15 @@ STALE_SOURCE_AFTER_SEC = 60.0
 
 
 def _fmt(v: Any) -> str:
+    """A sample value in the Prometheus text format. NaN and the
+    infinities are written ``NaN``, ``+Inf`` and ``-Inf``, as the format
+    spells them (a fleet's ``dct_slo_*`` gauges are NaN before its first
+    request); the JAX copy raises on them."""
     f = float(v)
+    if f != f:
+        return "NaN"
+    if f in (float("inf"), float("-inf")):
+        return "+Inf" if f > 0 else "-Inf"
     return repr(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
 
 

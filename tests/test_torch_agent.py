@@ -248,11 +248,19 @@ def test_slot_detection_and_its_refusals(monkeypatch, tmp_path):
          "--master-port", str(free_port()), "--work-dir", str(tmp_path)],
         capture_output=True, text=True, env=env, cwd=str(REPO), timeout=60)
     assert run.returncode != 0 and "--device cpu" in run.stderr
+    # the docker runtime is accepted (it too refuses a host without
+    # CUDA); an unknown runtime is refused, naming the three
     run = subprocess.run(
         [sys.executable, "-m", "determined_clone_tpu_torch.agent",
-         "--runtime", "docker"], capture_output=True, text=True, env=env,
+         "--runtime", "docker", "--master-port", str(free_port()),
+         "--work-dir", str(tmp_path)], capture_output=True, text=True,
+        env=env, cwd=str(REPO), timeout=60)
+    assert run.returncode != 0 and "--device cpu" in run.stderr
+    run = subprocess.run(
+        [sys.executable, "-m", "determined_clone_tpu_torch.agent",
+         "--runtime", "podman"], capture_output=True, text=True, env=env,
         cwd=str(REPO), timeout=60)
-    assert run.returncode == 2 and "docker" in run.stderr
+    assert run.returncode == 2 and "process|container|docker" in run.stderr
 
 
 def test_config_file_then_flags(tmp_path):
@@ -266,8 +274,8 @@ def test_config_file_then_flags(tmp_path):
         ["--config", str(cfg), "--master-port", "9100", "--device", "cpu"])
     c = agent_mod.config_from_args(args)
     assert (c.master_host, c.master_port, c.id, c.slots, c.work_dir,
-            c.device) == ("10.0.0.1", 9100, "from-file", 4, "/data/#x",
-                          "cpu")
+            c.device, c.docker_image) == ("10.0.0.1", 9100, "from-file", 4,
+                                          "/data/#x", "cpu", "img")
     (tmp_path / "bad.yaml").write_text("colour: blue\n")
     with pytest.raises(ValueError, match="unknown config key"):
         agent_mod.config_from_args(agent_mod.build_parser().parse_args(

@@ -7,9 +7,9 @@ port's ``GOOD_CONFIGS``/``BAD_CONFIGS`` (``tests/test_torch_core.py``).
 Everything is compared exactly: the parsed fields, ``to_dict``, the
 shimmed ``raw``, ``deprecations``, the schema's error lists, error
 messages, ``merge_configs``, hparam draws for five seeds (the same
-``random.Random`` in both) and the ``grid()`` order. The one departure:
-a valid cloud or content-addressed ``checkpoint_storage`` raises
-``NotImplementedError`` in the port, naming its ``ROADMAP.md`` item.
+``random.Random`` in both) and the ``grid()`` order. Every
+``checkpoint_storage`` type, cloud and content-addressed included,
+parses as in JAX.
 """
 import dataclasses
 import enum
@@ -178,11 +178,6 @@ def test_experiment_config_as_jax(name):
     raw = CASES[name]
     jkind, j = _outcome(jconfig.ExperimentConfig.from_dict, raw)
     tkind, t = _outcome(tconfig.ExperimentConfig.from_dict, raw)
-    if jkind == "ok" and tkind == "not_ported":
-        assert raw["checkpoint_storage"]["type"] in ("gcs", "s3", "azure",
-                                                     "cas")
-        assert "ROADMAP.md" in t and "the cloud storage managers" in t
-        return
     assert tkind == jkind, (t, j)
     if jkind != "ok":
         assert t == j

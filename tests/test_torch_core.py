@@ -131,16 +131,16 @@ def test_config_rejects_as_jax_does(raw):
     ({"checkpoint_storage": {"type": "s3", "bucket": "b"}}, "storage"),
 ], ids=["observability", "gcs", "s3"])
 def test_config_blocks_not_ported_raise(raw, item):
-    """A block the port lacks raises, naming its ROADMAP.md item; the
-    telemetry slice ported ``observability``, which now parses as the
-    JAX package parses it."""
+    """The blocks the port once refused now parse as the JAX package
+    parses them: ``observability`` (the telemetry slice) and the cloud
+    ``checkpoint_storage`` types (the storage slice); none raises."""
     j = JConfig.from_dict(raw)  # valid for the JAX package
+    t = TConfig.from_dict(raw)
     if item is None:
-        assert dataclasses.asdict(TConfig.from_dict(raw).observability) == \
+        assert dataclasses.asdict(t.observability) == \
             dataclasses.asdict(j.observability)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        TConfig.from_dict(raw)
+    assert t.checkpoint_storage.to_dict() == j.checkpoint_storage.to_dict()
 
 
 @pytest.mark.parametrize("slots", [0, 2, 4, 8])

@@ -68,6 +68,7 @@ from determined_clone_tpu_torch.serving.http import (
     generate_over_http,
 )
 from determined_clone_tpu_torch.telemetry import aggregate, flight, slo
+from determined_clone_tpu_torch.telemetry import metrics as tmetrics
 from determined_clone_tpu_torch.telemetry.metrics import MetricsRegistry
 from determined_clone_tpu_torch.utils.retry import RetryPolicy
 
@@ -785,6 +786,46 @@ def test_aggregator_text_and_rollups_match_jax():
                     len(agg.spans()))
     assert out["port"] == out["jax"]
     assert out["port"][1]["replicas"] == 2
+
+
+def test_aggregator_renders_a_fleet_registry_before_traffic(models):
+    """A fleet's registry ingested as a component before any request: its
+    ``dct_slo_*`` gauges are NaN, written ``NaN`` as the Prometheus text
+    format spells it, and the infinities ``+Inf``/``-Inf``; the text
+    parses back to the same values. The JAX aggregator's ``_fmt`` raises
+    on these values (a recorded departure, ``ROADMAP.md`` Queue 3)."""
+    tp = models["v1"][1]
+    agg = aggregate.ClusterMetricsAggregator(clock=lambda: 100.0)
+    fleet = port_fleet(tp, slo={"latency_threshold_s": 600.0})
+    try:
+        fleet.scale_up(1)
+        fleet.sample_telemetry()
+        agg.ingest_component("fleet", fleet.registry)
+        text = agg.dump()
+    finally:
+        fleet.close()
+    slo_samples = [(n, v) for n, _, v in
+                   tmetrics.parse_prometheus_text(text)["samples"]
+                   if n.startswith("dct_slo_")]
+    assert any(v != v for _, v in slo_samples), slo_samples
+    assert any(line.startswith("dct_slo_") and line.endswith(" NaN")
+               for line in text.splitlines())
+    reg = MetricsRegistry()
+    reg.gauge("up_inf", "x").set(float("inf"))
+    reg.gauge("down_inf", "x").set(float("-inf"))
+    agg.ingest_component("edges", reg)
+    lines = agg.dump().splitlines()
+    assert any(ln.startswith("up_inf") and ln.endswith(" +Inf")
+               for ln in lines)
+    assert any(ln.startswith("down_inf") and ln.endswith(" -Inf")
+               for ln in lines)
+    parsed = {n: v for n, _, v in tmetrics.parse_prometheus_text(
+        agg.dump())["samples"]}
+    assert parsed["up_inf"] == float("inf")
+    assert parsed["down_inf"] == float("-inf")
+    for value in (float("nan"), float("inf")):
+        with pytest.raises((ValueError, OverflowError)):
+            jaggregate._fmt(value)
 
 
 # -- the fleet and kv commands --------------------------------------------------------

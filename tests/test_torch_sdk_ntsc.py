@@ -255,6 +255,9 @@ def test_cli_full_surface(cluster, completed, det, tmp_path, capsys):
                "--trigger", "COMPLETED") == 0
     assert det("group", "create", "cli-group") == 0
     capsys.readouterr()
+    # the experiment reads COMPLETED before the agent has reported its
+    # trial's exit; the queue must not change between the two CLIs' reads
+    wait_for(lambda: not session.job_queue(), desc="an empty job queue")
 
     # every read prints what the JAX CLI prints against this master
     reads = [["master", "config"], ["master", "logs", "--limit", "5"],
@@ -299,10 +302,12 @@ def test_cli_full_surface(cluster, completed, det, tmp_path, capsys):
     assert det("experiment", "archive", str(exp2)) == 0
     assert "archived=True" in capsys.readouterr().out
 
-    # the three refusals name their ROADMAP.md item
-    for argv, item in ((["checkpoint", "stats", "--host-path", "x"],
-                        "item 4.3"),
-                       (["exec-cache", "stats", "--dir", "x"], "item 6"),
+    # the refusals left name their ROADMAP.md item; checkpoint stats
+    # reads the content-addressed store (an empty one here)
+    assert det("checkpoint", "stats", "--host-path",
+               str(tmp_path / "cas-root")) == 0
+    assert json.loads(capsys.readouterr().out)["cas_checkpoints"] == 0
+    for argv, item in ((["exec-cache", "stats", "--dir", "x"], "item 6"),
                        (["deploy", "gcp", "up", "--project", "p",
                          "--zone", "z"], "item 6"),
                        (["deploy", "gke", "down", "--project", "p",
@@ -467,8 +472,9 @@ def test_task_server_starts_without_torch():
 def test_every_jax_command_exists():
     """The port's command tree is the JAX CLI's: every command and flag,
     with ``--device`` where a model or the scaling bench runs (the card
-    unless ``cpu``), the fleet's ``--resource-pool``, and no ``kv stats
-    --config`` (it needs the content-addressed checkpoint store)."""
+    unless ``cpu``) and the fleet's ``--resource-pool``; ``kv stats
+    --config`` is there since the content-addressed checkpoint store
+    is."""
     import argparse
 
     def paths(parser, pre=()):
@@ -482,7 +488,7 @@ def test_every_jax_command_exists():
         return out
 
     jax_tree, port_tree = (paths(mod.build_parser()) for mod in (jcli, cli))
-    assert jax_tree - port_tree == {("kv", "stats", "--config")}
+    assert jax_tree - port_tree == set()
     assert port_tree - jax_tree == {
         ("deploy", "local", "cluster-up", "--device"),
         ("fleet", "up", "--device"), ("fleet", "up", "--resource-pool"),
